@@ -1,15 +1,14 @@
-"""Scaling-efficiency benchmark for the sharded scanner.
+"""Scaling-efficiency benchmark for the time-sharded scanner.
 
-Runs the (stream x time)-sharded chain on 1..N devices and reports
-samples/s and parallel efficiency vs the 1-device run — the >=80 %
-scaling-efficiency target of BASELINE.json.
+Runs the (1 x T) time-sharded chain (halo exchange over ppermute) on
+T = 1..N devices and reports samples/s and parallel efficiency vs the
+1-device run.  Each timed region ends in ``block_until_ready``.
 
-On this dev environment only one real TPU chip is attached; with
---platform cpu the same measurement runs on a virtual 8-device CPU mesh
-(useful for halo-overhead sanity, not absolute numbers).  On a real pod
-slice, run as-is.
+With --platform cpu the same measurement runs on a virtual 8-device CPU
+mesh (a rehearsal of the sharding, not a device number).
 
-Prints one JSON line per device count.
+Prints one JSON line per device count, with the JAX device record and
+the card's name and power limit.
 """
 
 import argparse
@@ -19,130 +18,14 @@ import sys
 import time
 
 
-def model_main(args) -> int:
-    """Analytic ICI scaling-efficiency model (VERDICT r4 #6).
-
-    No pod slice has ever been attached to this environment, so the
-    >=80 % scaling target cannot be measured; this mode publishes the
-    ARGUMENT instead: per (1 x T) time-mesh shape, the modeled
-    per-shard compute bytes (utils/traffic.py physical floor + the
-    exact-state pre-pass's extra wire read) against the collective
-    bytes the fused sharded step actually exchanges
-    (parallel/scanner_sharded.py + halo.py + fused_halo.py):
-
-      ppermute halos (per shard, once per step):
-        dc scalar 8 B + front hist 512 c64 (4 KiB) + pfb band row
-        400 c64 (3.2 KiB) + demod_prev 16 c64 (128 B)
-      all_gathers for the replicated FSM (tiled, per shard ~(T-1)/T of):
-        rssi [K, 16] f32 + CTCSS pre/mem [K, 38] c64 x 2
-      compose_dc_chain: all_gather of 4 c64 affine summaries
-
-    t_T = max(compute, HBM) / T + collectives / ICI + hops * latency;
-    eff(T) = t_1 / (T * t_T).  Defaults: HBM 761 GB/s (the measured
-    fetch-anchored envelope), ICI 45 GB/s/direction (a conservative
-    v5e-class per-link figure), 1 us per collective hop.
-    """
-    from sdr_pmr446_tpu.utils.traffic import (WIRE_BYTES,
-                                              min_traffic_b_per_sample)
-    k1 = args.subchunks_per_step or 64
-    b_phys = min_traffic_b_per_sample(
-        args.format, use_pallas=True, fuse_rssi=True, fuse_ctcss=True,
-        fuse_band=True, physical=True)
-    # time-sharding overhead of the DUO engine: the exact-state pre-pass
-    # (fused_halo.front_zero_summary / kernels/summary.py) re-reads the
-    # wire once to emit tiny row summaries — so the cost is one extra
-    # wire read per input sample, format-dependent (cu8 2 B, cf32w 8 B)
-    corr = WIRE_BYTES[args.format]
-    hbm = args.hbm_gbps * 1e9
-    ici = args.ici_gbps * 1e9
-    hop = args.hop_us * 1e-6
-    n_coll = 7                                       # distinct collectives
-
-    def coll_bytes(k, t_mesh):
-        """ICI bytes per shard per step: ppermute halos + FSM gathers."""
-        if t_mesh == 1:
-            return 0.0
-        pp = 8 + 512 * 8 + 400 * 8 + 16 * 8 + 4 * 8  # halos, K-independent
-        ag = (t_mesh - 1) / t_mesh * (k * 16 * 4 + 2 * k * 38 * 8)
-        return pp + ag
-
-    def t_step(k, t_mesh):
-        n = k * 100352
-        c = corr if t_mesh > 1 else 0.0
-        return (n * (b_phys + c) / t_mesh / hbm
-                + coll_bytes(k, t_mesh) / ici
-                + (n_coll * hop if t_mesh > 1 else 0.0))
-
-    rows = []
-    for t_mesh in (1, 2, 4, 8):
-        row = {"devices": t_mesh}
-        # STRONG time-sharding: fixed K, each shard gets K/T sub-chunks
-        # (latency scaling).  The pre-pass wire re-read is a fixed
-        # fraction of compute, so efficiency steps down once at T=2 and
-        # then erodes slowly with the gathers.
-        if k1 % (8 * t_mesh) == 0:
-            row["strong_time_eff"] = round(
-                t_step(k1, 1) / (t_mesh * t_step(k1, t_mesh)), 3)
-        # WEAK time-sharding: K = K1*T, per-shard work constant
-        # (throughput scaling of ONE stream).
-        row["weak_time_eff"] = round(
-            t_step(k1, 1) * t_mesh / (t_mesh * t_step(k1 * t_mesh,
-                                                      t_mesh)), 3)
-        # STREAM data parallelism (BASELINE config 5, scan_batch):
-        # independent captures, no halos, no correction, no collectives
-        # in the signal path — the FSM is per-stream, and since round 5
-        # (S, 1) meshes skip the exact-state pre-pass entirely
-        # (scanner_sharded._duo_front_pfb), so each stream runs the
-        # EXACT unsharded engine.  Modeled at 1.0 minus nothing; the
-        # real-world limit is host IO, not ICI.
-        row["stream_eff"] = 1.0
-        row["collective_KB_per_shard"] = round(
-            coll_bytes(k1, t_mesh) / 1e3, 2)
-        row["compute_MB_per_shard"] = round(
-            k1 * 100352 * b_phys / t_mesh / 1e6, 2)
-        rows.append(row)
-        print(json.dumps(row))
-    summary = {
-        "k": k1, "b_phys_B_per_smp": b_phys,
-        "prepass_wire_B_per_smp": corr, "format": args.format,
-        "hbm_gbps": args.hbm_gbps, "ici_gbps": args.ici_gbps,
-        "weak_time_meets_80pct": all(
-            r["weak_time_eff"] >= 0.8 for r in rows),
-        "stream_meets_80pct": True,
-        "strong_time_worst": min(r["strong_time_eff"] for r in rows
-                                 if "strong_time_eff" in r),
-    }
-    print(json.dumps(summary))
-    return 0
-
-
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--platform", default=None, choices=[None, "cpu"],
                    nargs="?")
     p.add_argument("--devices", type=int, nargs="*", default=None)
-    p.add_argument("--subchunks-per-step", type=int, default=0,
-                   help="0 = auto: 64 for the fused engine (divisible by "
-                        "8 per shard at every device count), 40 for XLA")
+    p.add_argument("--subchunks-per-step", type=int, default=40)
     p.add_argument("--iters", type=int, default=10)
-    p.add_argument("--engine", choices=["auto", "xla", "pallas"],
-                   default="auto",
-                   help="auto: the recorded fused engine on TPU (scaling "
-                        "numbers should measure the engine deployments "
-                        "run), XLA elsewhere")
-    p.add_argument("--model", action="store_true",
-                   help="print the ANALYTIC ICI scaling-efficiency model "
-                        "(no pod slice in this environment; see "
-                        "model_main)")
-    p.add_argument("--format", default="cu8",
-                   help="wire format for --model (cu8 = the recorded "
-                        "serving wire)")
-    p.add_argument("--hbm-gbps", type=float, default=761.0)
-    p.add_argument("--ici-gbps", type=float, default=45.0)
-    p.add_argument("--hop-us", type=float, default=1.0)
     args = p.parse_args()
-    if args.model:
-        return model_main(args)
 
     if args.platform == "cpu":
         os.environ["JAX_PLATFORMS"] = "cpu"
@@ -154,11 +37,15 @@ def main() -> int:
     import jax
     if args.platform == "cpu":
         jax.config.update("jax_platforms", "cpu")
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from sdr_pmr446_tpu.utils.compile_cache import enable_compile_cache
+    from sdr_pmr446_tpu.utils.device import card_identity, device_record
+    enable_compile_cache()
+    dev = device_record()
+    if dev["platform"] != "gpu" and args.platform != "cpu":
+        print(f"bench_scaling: no GPU found (JAX reports {dev}); use "
+              f"--platform cpu for a rehearsal", file=sys.stderr)
+        return 2
+    card = card_identity()
     import jax.numpy as jnp
     from sdr_pmr446_tpu import config as C
     from sdr_pmr446_tpu.io import synth
@@ -166,24 +53,15 @@ def main() -> int:
                                                          make_mesh)
     from sdr_pmr446_tpu.scanner.chain import make_runtime_params
 
-    from sdr_pmr446_tpu.runtime.driver import resolve_engine
-    engine = resolve_engine(args.engine)
-    use_pallas = engine.startswith("pallas")
     n_avail = len(jax.devices())
     counts = args.devices or [d for d in (1, 2, 4, 8) if d <= n_avail]
-    k = args.subchunks_per_step or (64 if use_pallas else 40)
+    k = args.subchunks_per_step
     params = make_runtime_params(C.ScannerArgs())
 
     base = None
     for d in counts:
         mesh = make_mesh(1, d)
-        chain = ShardedScannerChain(
-            mesh, C.BlockConfig(k), use_pallas=use_pallas,
-            pallas_interpret=jax.default_backend() != "tpu")
-        if use_pallas and not chain.fused:
-            print(f"# d={d}: K={k} not divisible by 8 per shard — "
-                  f"round-1 kernel set runs instead of the fused engine",
-                  file=sys.stderr)
+        chain = ShardedScannerChain(mesh, C.BlockConfig(k))
         state = chain.init_state(1)
         n = chain.block.input_len
         iq = jnp.asarray(
@@ -202,9 +80,12 @@ def main() -> int:
         eff = msps / (base * d)
         print(json.dumps({
             "devices": d,
-            "Msamples_per_sec": round(msps, 1),
-            "scaling_efficiency": round(eff, 3),
-            "vs_realtime": round(msps / 1.024, 1),
+            "k": k,
+            "Msamples_per_sec": msps,
+            "scaling_efficiency": eff,
+            "vs_realtime": msps / 1.024,
+            "device": dev,
+            "card": card,
         }))
     return 0
 

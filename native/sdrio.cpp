@@ -1,6 +1,6 @@
-// sdrio: native host-side IO engine for the TPU SDR framework.
+// sdrio: native host-side IO engine for the SDR framework.
 //
-// TPU-native equivalent of the reference's native runtime plumbing —
+// Equivalent of the reference's native runtime plumbing —
 // liquid's cbuffercf/cbufferf ring buffers (src/sdr_pmr446.c:467-471,
 // 797-816, 903-906), the SoapySDR CF32 sample plane (src/shared.c), and the
 // RtAudio handoff (src/sdr_pmr446.c:520-544) — rebuilt as a small C++
@@ -10,7 +10,7 @@
 //     block-assembly for the device step), float32 elements (interleave IQ
 //     as 2 floats per sample);
 //   * IQ format converters (cu8/cs8/cs16 -> cf32) as tight vectorizable
-//     loops — the hot path when feeding the TPU from rtl_sdr captures;
+//     loops — the hot path when feeding the device from rtl_sdr captures;
 //   * a chunked capture reader that yields fixed-size blocks with remainder
 //     carry (the cbuffercf role for file sources);
 //   * streaming s16/f32 WAV writer (the file-side RtAudio replacement).

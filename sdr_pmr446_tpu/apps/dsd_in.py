@@ -20,8 +20,7 @@ from sdr_pmr446_tpu.scanner.dsd_in import DsdInChain
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="dsd_in", description="dsd_feeder -- DSD signal pre-processor "
-                                   "(TPU-native)")
+        prog="dsd_in", description="dsd_feeder -- DSD signal pre-processor")
     p.add_argument("-g", "--gain", type=float, default=25.0,
                    help="SDR receiver gain in dB (unused for file sources)")
     p.add_argument("-f", "--frequency", type=float, default=160.0e6,
@@ -42,21 +41,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "(amortizes per-dispatch overhead; output within "
                         "1 int16 LSB of 1)")
     p.add_argument("--device-decode", action="store_true",
-                   help="for cs16/cu8 captures: ship the raw wire bytes to "
-                        "the device and decode there (2-4x less "
-                        "host->device traffic)")
-    p.add_argument("--engine",
-                   choices=["auto", "xla", "pallas", "pallas-interpret"],
-                   default="auto",
-                   help="auto: fused Pallas kernels on TPU (needs "
-                        "--subchunks-per-step %% 8 == 0; falls back to "
-                        "XLA otherwise), XLA elsewhere")
+                   help="ship the capture's raw wire bytes to the device "
+                        "and decode there (cs16/cu8/cs8: 2-4x less "
+                        "host->device traffic; cf32 goes as cf32w)")
     return p
 
 
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
     ns = build_parser().parse_args(argv)
+    from sdr_pmr446_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     live = ns.input.startswith("rtl_tcp://")
     if live and ns.device_decode:
         logging.error("--device-decode needs a capture file, not a live "
@@ -73,27 +68,8 @@ def main(argv=None) -> int:
                           "(got format %r)",
                           "/".join(decode.PACKED_FORMATS), fmt)
             return 1
-    from sdr_pmr446_tpu.runtime.driver import resolve_engine
-    engine = resolve_engine(ns.engine)
-    use_pallas = engine.startswith("pallas")
-    if use_pallas and ns.subchunks_per_step % 8 != 0:
-        if ns.engine == "auto":
-            logging.info("engine auto: K=%d %% 8 != 0 — the fused group "
-                         "geometry needs multiples of 8, using XLA",
-                         ns.subchunks_per_step)
-            use_pallas = False
-        else:
-            logging.error("--engine %s needs --subchunks-per-step %% 8 "
-                          "== 0 (group-band geometry)", ns.engine)
-            return 1
-    import jax
     chain = DsdInChain(subchunks_per_step=ns.subchunks_per_step,
-                       input_format=packed_fmt or "cf32",
-                       use_pallas=use_pallas,
-                       # Mosaic lowers on real TPUs only (scan_batch
-                       # does the same off-TPU)
-                       pallas_interpret=(engine == "pallas-interpret"
-                                         or jax.default_backend() != "tpu"))
+                       input_format=packed_fmt or "cf32")
     live_source = None
     if live:
         # live network SDR at the -f frequency (reference init_soapy role,

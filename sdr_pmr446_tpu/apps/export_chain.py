@@ -4,12 +4,12 @@ Production serving without Python tracing: the jitted block step
 ((state, iq[, params]) -> (state', outputs)) is lowered once, serialized
 with jax.export, and can be reloaded (or embedded in a C++ serving stack
 via the StableHLO/XLA runtime) with `jax.export.deserialize(blob).call`.
-This is the TPU-framework analog of shipping the reference's compiled
-binary: the signal graph is frozen, versioned, and runs with zero Python
-in the hot path.
+This is the analog of shipping the reference's compiled binary: the
+signal graph is frozen, versioned, and runs with zero Python in the hot
+path.
 
     python -m sdr_pmr446_tpu.apps.export_chain --config scanner \
-        --out scanner_k10.jaxexport [--platforms cpu,tpu] [-k 10]
+        --out scanner_k10.jaxexport [--platforms cpu,cuda] [-k 10]
 
 Round-trip equality vs the live chain is test-enforced
 (tests/test_export.py).
@@ -55,7 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-k", "--subchunks-per-step", type=int, default=10)
     p.add_argument("--out", type=str, required=True)
     p.add_argument("--platforms", type=str, default="",
-                   help="comma-separated lowering targets (e.g. cpu,tpu); "
+                   help="comma-separated lowering targets (e.g. cpu,cuda); "
                         "default: the current backend")
     p.add_argument("--lowpass", action="store_true")
     p.add_argument("--fir-deemph", action="store_true")
@@ -131,6 +131,8 @@ def build_exported(ns):
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
     ns = build_parser().parse_args(argv)
+    from sdr_pmr446_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     exp, _, _ = build_exported(ns)
     blob = exp.serialize()
     with open(ns.out, "wb") as f:

@@ -36,6 +36,8 @@ def main(argv=None) -> int:
     p.add_argument("--steps-per-dispatch", type=int, default=1,
                    help="blocks fused into one device dispatch (lax.scan)")
     ns = p.parse_args(argv)
+    from sdr_pmr446_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     iq = iq_io.read_iq(ns.input, ns.input_format)
     args = C.ScannerArgs(squelch_level=ns.squelch)

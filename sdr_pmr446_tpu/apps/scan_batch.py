@@ -1,7 +1,7 @@
 """scan_batch CLI — data-parallel scanning of MANY captures at once.
 
-The production serving shape of the framework (BASELINE config 5's stream
-axis): S independent IQ captures are scanned simultaneously on a
+The production serving shape of the framework (the mesh's stream axis):
+S independent IQ captures are scanned simultaneously on a
 (stream, time) device mesh — the reference would need S processes with S
 radios (src/sdr_pmr446.c runs exactly one).  The native BatchReader feeds
 [S, block] sample planes with worker-thread format conversion; the sharded
@@ -9,7 +9,7 @@ chain demodulates every capture's active channel per step; per-capture
 WAVs and event logs come out.
 
     python -m sdr_pmr446_tpu.apps.scan_batch cap1.cs16 cap2.cf32 ... \
-        --out-dir scans/ [-s 18] [-p max] [--mesh S,T] [--engine pallas]
+        --out-dir scans/ [-s 18] [-p max] [--mesh S,T]
 """
 
 from __future__ import annotations
@@ -56,12 +56,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "filesystem; process 0 writes the outputs)")
     p.add_argument("--num-processes", type=int, default=1)
     p.add_argument("--process-id", type=int, default=0)
-    p.add_argument("--engine", choices=["auto", "xla", "pallas"],
-                   default="auto",
-                   help="'pallas' = fused kernels (default on TPU "
-                        "backends via 'auto'), 'xla' = the op chain "
-                        "(default elsewhere; interpret-mode pallas is "
-                        "auto-selected off-TPU when 'pallas' is forced)")
     p.add_argument("--subchunks-per-step", type=int, default=10)
     p.add_argument("--steps-per-dispatch", type=int, default=1,
                    help="blocks fused into one device dispatch via lax.scan "
@@ -71,15 +65,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="checkpoint path: periodically persist (blocks "
                         "done, the full [S, ...] sharded state pytree, "
                         "host accumulators) so a killed batch job resumes "
-                        "where it left off (VERDICT r4 #3); a SIGTERM/"
-                        "SIGINT flushes a final checkpoint before exit")
+                        "where it left off; a SIGTERM/SIGINT flushes a "
+                        "final checkpoint before exit")
     p.add_argument("--checkpoint-every", type=int, default=1,
                    help="dispatch groups between checkpoints "
                         "(with --checkpoint)")
     p.add_argument("--checkpoint-backend", choices=["npz", "orbax"],
-                   default="orbax",
-                   help="orbax (default): the JAX-ecosystem standard, "
-                        "saves sharded arrays; npz: dependency-free")
+                   default="npz",
+                   help="npz (default): dependency-free single file; "
+                        "orbax: the JAX-ecosystem standard directory "
+                        "format (needs the orbax-checkpoint package)")
     p.add_argument("--resume", action="store_true",
                    help="restore --checkpoint and continue mid-batch; "
                         "outputs are identical to an uninterrupted run")
@@ -137,6 +132,16 @@ def main(argv=None) -> int:
                         format="[%(asctime)s %(name)s] %(message)s",
                         stream=sys.stderr)
     ns = build_parser().parse_args(argv)
+    if ns.checkpoint_backend == "orbax":
+        try:
+            import orbax.checkpoint  # noqa: F401
+        except ImportError:
+            logging.error("--checkpoint-backend orbax needs the "
+                          "orbax-checkpoint package (not installed); use "
+                          "the default npz backend")
+            return 1
+    from sdr_pmr446_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     try:
         mask = (C.parse_channel_mask(ns.mask) if ns.mask
                 else (1 << C.MAX_CHANNELS) - 1)
@@ -232,16 +237,10 @@ def main(argv=None) -> int:
                                 axis_names=(STREAM_AXIS, TIME_AXIS))
     else:
         mesh = make_mesh(s_axis, t_axis)
-    from sdr_pmr446_tpu.runtime.driver import resolve_engine
-    engine = resolve_engine(ns.engine)
     chain = ShardedScannerChain(
         mesh, C.BlockConfig(ns.subchunks_per_step), lowpass=ns.lowpass,
-        use_pallas=engine.startswith("pallas"),
         input_format=packed_fmt or "cf32",
-        waterfall=max(ns.waterfall, 0),
-        # Mosaic only lowers on real TPUs; elsewhere (CPU dev hosts) the
-        # kernels run under the Pallas interpreter, like the halo_dma path
-        pallas_interpret=jax.default_backend() != "tpu")
+        waterfall=max(ns.waterfall, 0))
     params = make_runtime_params(args)
     if multihost:
         # globally-sharded initial state: every process materializes only
@@ -257,8 +256,8 @@ def main(argv=None) -> int:
     else:
         state = chain.init_state(n_streams)
     block_len = chain.block.input_len
-    log.info("scanning %d captures on a (%d stream x %d time) mesh, "
-             "%s engine", n_streams, s_axis, t_axis, engine)
+    log.info("scanning %d captures on a (%d stream x %d time) mesh",
+             n_streams, s_axis, t_axis)
 
     if packed_fmt:
         reader = _RawBatchReader(paths, packed_fmt)
@@ -275,7 +274,7 @@ def main(argv=None) -> int:
     total_got = 0             # real samples read (longest capture)
     n_fuse = max(1, ns.steps_per_dispatch)
 
-    # ---- checkpoint/resume (VERDICT r4 #3): (blocks done, [S,...] state
+    # ---- checkpoint/resume: (blocks done, [S,...] state
     # pytree) via runtime/state.py backends + the host accumulators in a
     # sidecar npz, snapshotted only at drained-consistent boundaries so a
     # resumed run's outputs equal an uninterrupted run's
@@ -395,23 +394,17 @@ def main(argv=None) -> int:
         except ValueError:        # non-main thread (tests)
             pass
 
-    # the fused sharded engine consumes wire words in the kernels' 2-D row
-    # layout [S, rows, width] (a free host reshape of the same bytes)
-    extra_dims = len(chain.step_arg_shape) - 1
-
     def _dispatch(group):
         nonlocal state
         if multihost:
             from jax.sharding import PartitionSpec as P
-            tail = (None,) * extra_dims
             if len(group) == 1:
                 x = dist.make_global_array(
-                    mesh, P(STREAM_AXIS, TIME_AXIS, *tail), group[0])
+                    mesh, P(STREAM_AXIS, TIME_AXIS), group[0])
                 state, out = chain.step(state, x, params)
             else:
                 xs = dist.make_global_array(
-                    mesh, P(None, STREAM_AXIS, TIME_AXIS, *tail),
-                    np.stack(group))
+                    mesh, P(None, STREAM_AXIS, TIME_AXIS), np.stack(group))
                 state, out = chain.multi_step(state, xs, params)
         elif len(group) == 1:
             state, out = chain.step(state, group[0], params)
@@ -474,8 +467,6 @@ def main(argv=None) -> int:
             # multihost: keep blocks as host numpy and globalize at
             # dispatch so each process ships only its addressable shards
             blk = np.asarray(blk)
-            if extra_dims:
-                blk = blk.reshape((blk.shape[0],) + chain.step_arg_shape)
             group.append(blk if multihost else jnp.asarray(blk, feed_dtype))
         if not group or (len(group) < n_fuse and not eof):
             continue

@@ -3,8 +3,9 @@
 Mirrors the reference app's flags (src/sdr_pmr446.c:161-328): -g/--gain,
 -s/--squelch, -w/--waterfall, -l/--lowpass, -m/--mask, -a/--audio-gain,
 -b/--audio-api (accepted for CLI parity; file output replaces live audio),
--p/--lock-mode; plus file-driven source/sink options replacing the SoapySDR
-hardware source (TPU hosts have no USB SDR; SURVEY.md §2b).
+-p/--lock-mode; plus file-driven and rtl_tcp source options replacing the
+SoapySDR hardware source (accelerator hosts rarely have a USB SDR attached;
+SURVEY.md §2b).
 """
 
 from __future__ import annotations
@@ -23,8 +24,7 @@ from sdr_pmr446_tpu.ui import waterfall as wf_ui
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="sdr_pmr446",
-        description="sdr_pmr446 -- a PMR446 band scanner/receiver "
-                    "(TPU-native)")
+        description="sdr_pmr446 -- a PMR446 band scanner/receiver")
     p.add_argument("-g", "--gain", type=float, default=C.SDR_DEFAULT_GAIN,
                    help="SDR receiver gain in dB (unused for file sources; "
                         f"default: {C.SDR_DEFAULT_GAIN})")
@@ -59,17 +59,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "(packed in f32 words) and decode there: cs16/cu8/"
                         "cs8 cut host->device traffic 2-4x, and cf32 "
                         "captures go as cf32w (byte-identical interleaved "
-                        "f32) so the fused Pallas front end consumes the "
-                        "wire in place — the benchmark configuration "
-                        "(bench.py --input-format cf32w)")
-    p.add_argument("--engine", choices=["auto", "xla", "pallas",
-                                        "pallas-interpret"],
-                   default="auto",
-                   help="compute engine: 'pallas' = fused TPU kernels "
-                        "(the benchmarked fast path), 'xla' = the op "
-                        "chain; 'auto' picks pallas on TPU backends and "
-                        "xla elsewhere; 'pallas-interpret' runs the "
-                        "kernels under the interpreter (validation)")
+                        "f32, zero host conversion)")
     p.add_argument("--output", type=str, default="audio.wav",
                    help="output WAV for the demodulated audio, or 'live' to "
                         "stream through the host audio sink (-b)")
@@ -104,6 +94,8 @@ def main(argv=None) -> int:
                         format="[%(asctime)s %(name)s] %(message)s",
                         stream=sys.stderr)
     ns = build_parser().parse_args(argv)
+    from sdr_pmr446_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     try:
         mask = (C.parse_channel_mask(ns.mask) if ns.mask
                 else (1 << C.MAX_CHANNELS) - 1)
@@ -261,8 +253,7 @@ def main(argv=None) -> int:
                            checkpoint_every=ns.checkpoint_every,
                            input_format=packed_fmt or "cf32",
                            steps_per_dispatch=ns.steps_per_dispatch,
-                           checkpoint_backend=ns.checkpoint_backend,
-                           engine=ns.engine)
+                           checkpoint_backend=ns.checkpoint_backend)
     if ns.resume:
         if not ns.checkpoint:
             logging.error("--resume needs --checkpoint")

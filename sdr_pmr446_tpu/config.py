@@ -1,9 +1,9 @@
-"""Configuration for the TPU-native PMR446 scanner framework.
+"""Configuration for the PMR446 scanner framework.
 
 Mirrors the compile-time constants and runtime flags of the reference C app
 (reference: src/sdr_pmr446.c:18-46 constants, include/sdr_pmr446.h:28-40 args,
 src/dsd_in.c:22-27), re-expressed as frozen dataclasses.  Block geometry is
-TPU-native: all chunk sizes are multiples of 2048 input samples so that the
+static: all chunk sizes are multiples of 2048 input samples so that the
 25/128 rational resampler and the 16-way channelizer produce exactly integral
 outputs per chunk (2048 in -> 400 resampled -> 25 channel frames), which keeps
 every array shape static under jit (the reference instead absorbs fractional
@@ -73,7 +73,7 @@ FM_KF = 0.5                          # freqdem modulation factor (src/sdr_pmr446
 MAX_CHANNELS = 64                    # channel-mask width (src/sdr_pmr446.c:18)
 
 # ----------------------------------------------------------------------------
-# TPU block geometry
+# Block geometry
 # ----------------------------------------------------------------------------
 
 # Smallest input granule with integral yields everywhere:

@@ -1,7 +1,7 @@
 """Optional live audio sink (RtAudio-role, host side).
 
-The reference plays audio via RtAudio (src/sdr_pmr446.c:520-603).  On a TPU
-host there is usually no audio server; when one exists this sink pipes mono
+The reference plays audio via RtAudio (src/sdr_pmr446.c:520-603).  On an
+accelerator host there is usually no audio server; when one exists this sink pipes mono
 float32/s16 PCM into ``aplay`` (ALSA) or ``pacat`` (PulseAudio), whichever
 is available — the same role the reference's README fills with ``play``.
 Falls back cleanly (``available()`` False) so file sinks remain the default.

@@ -1,7 +1,7 @@
 """IQ sources: raw capture files and synthetic streams.
 
 Replaces the reference's SoapySDR hardware source (src/shared.c:11-88) for
-TPU hosts, which have no USB SDR: the framework is file/array driven
+accelerator hosts, which rarely have a USB SDR: the framework is file/array driven
 (SURVEY.md §7 design stance).  Supported formats cover the RTL-SDR world:
 
   - cf32 / fc32:   interleaved float32 I/Q (SoapySDR CF32)

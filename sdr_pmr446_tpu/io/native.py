@@ -5,7 +5,7 @@ Native equivalents of the reference's ring buffers and sample plane
 SoapySDR CF32 reads, src/shared.c:62-88).
 Loads libsdrio.so when present (``make -C native``), with transparent
 NumPy fallbacks so the framework works without the native build.  The native
-paths matter on the host side of a TPU pipeline: IQ format conversion and
+paths matter on the host side of the device pipeline: IQ format conversion and
 ring buffering at multi-GB/s without holding the GIL in Python loops.
 """
 
@@ -183,7 +183,8 @@ def convert_iq(raw: np.ndarray, fmt: str) -> np.ndarray:
         if code == 1:
             f = raw.astype(np.float32) / 32768.0
         elif code == 2:
-            f = (raw.astype(np.float32) - 127.5) / 127.5
+            # reciprocal multiply, as sdrio.cpp, io/iq.py and ops/decode.py
+            f = (raw.astype(np.float32) - 127.5) * np.float32(1.0 / 127.5)
         else:
             f = raw.astype(np.float32) / 128.0
     return (f[0::2] + 1j * f[1::2]).astype(np.complex64)
@@ -270,8 +271,8 @@ class WavWriter:
 class BatchReader:
     """Multi-stream batch reader: S captures -> [S, block] complex64 blocks.
 
-    The host data-loader for data-parallel stream batches (BASELINE config
-    5): worker threads convert formats concurrently in the native engine.
+    The host data-loader for data-parallel stream batches (scan_batch):
+    worker threads convert formats concurrently in the native engine.
     Falls back to sequential CaptureReaders without the native build.
     """
 

@@ -2,7 +2,7 @@
 
 The reference is a live receiver: SoapySDR enumerates a local USB SDR and
 blocking-reads CF32 samples (src/shared.c:11-88, src/sdr_pmr446.c:788-794).
-TPU hosts have no USB radios, so the live path here is the rtl_tcp wire
+Accelerator hosts rarely have USB radios, so the live path here is the rtl_tcp wire
 protocol instead: any machine with an RTL-SDR runs ``rtl_tcp -a 0.0.0.0``
 and this client streams its cu8 IQ over the network, applying the same
 tuning parameters init_soapy would set (sample rate, center frequency,

@@ -1,7 +1,7 @@
 """Synthetic PMR446 signal generators (golden-IQ test fixtures).
 
 The reference is verified only by listening to live RF (SURVEY.md §4); the
-TPU framework is file/array-driven, so ground-truth IQ is generated here:
+framework is file/array-driven, so ground-truth IQ is generated here:
 NBFM voice + CTCSS sub-audible tone on chosen channels, with AWGN.
 """
 

@@ -1,7 +1,7 @@
 """WAV sinks/sources (the RtAudio replacement's file side).
 
-The reference plays audio live via RtAudio (src/sdr_pmr446.c:520-603); on a
-TPU host the correctness target is sample-exact files (SURVEY.md §2b), so the
+The reference plays audio live via RtAudio (src/sdr_pmr446.c:520-603); on an
+accelerator host the correctness target is sample-exact files (SURVEY.md §2b), so the
 primary sink is WAV (float32 or s16), with streaming append support.
 """
 

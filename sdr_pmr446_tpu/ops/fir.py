@@ -1,6 +1,6 @@
 """Block-streaming FIR filtering (overlap-save) as pure functions.
 
-TPU-native replacement for liquid's firfilt_rrrf/wdelayf streaming objects
+Block replacement for liquid's firfilt_rrrf/wdelayf streaming objects
 (reference: src/sdr_pmr446.c:443-458, 882-901): instead of per-sample state
 inside an opaque object, each op is ``(history, block) -> (new_history,
 block)`` with the history being the last ``len(taps)-1`` input samples —
@@ -38,7 +38,7 @@ def fir_apply(hist: jax.Array, x: jax.Array, taps: jax.Array):
 def _correlate_valid(xe: jax.Array, kernel: jax.Array) -> jax.Array:
     """'valid' correlation of [..., T+L-1] with [L] -> [..., T].
 
-    Lowered through lax.conv_general_dilated so XLA can tile it onto the MXU.
+    Lowered through lax.conv_general_dilated (an XLA convolution).
     Complex inputs are filtered as two real convolutions (kernel is real).
     """
     if jnp.iscomplexobj(xe):

@@ -2,7 +2,7 @@
 
 The reference chain has three one-pole recurrences (IQ DC blocker, audio DC
 blocker, de-emphasis; src/sdr_pmr446.c:422,450,460-465).  Recurrences are the
-one thing TPUs don't do per-sample; here they are computed EXACTLY (same
+one thing accelerators don't do per-sample; here they are computed EXACTLY (same
 arithmetic fixed point as the sequential form, up to fp rounding) with a tiled
 two-level scan:
 

@@ -1,6 +1,6 @@
 """Fused NCO-mixer + 16-channel polyphase filterbank channelizer.
 
-TPU-native replacement for the reference's per-sample nco_crcf mix-down +
+Block replacement for the reference's per-sample nco_crcf mix-down +
 firpfbch_crcf analyzer inner loop (src/sdr_pmr446.c:804-825): one strided
 complex convolution with a static [416, 16] kernel that folds together
 
@@ -17,7 +17,7 @@ i.e. PMR channel k+1, down-converted to baseband and decimated to 12.5 kHz:
 Because 16*w_mix = 15*pi = pi (mod 2pi), the mixer contributes only a static
 in-frame phase plus a global (-1)^n frame flip, so the kernel is constant and
 the only carried mixer state is the frame-count parity (the reference's NCO
-phase accumulator has no TPU equivalent — phase is closed-form, SURVEY.md §2c).
+phase accumulator has no block equivalent — phase is closed-form, SURVEY.md §2c).
 
 Carried state: last 2*16*m - 16 = 400 resampled samples + frame parity.
 """

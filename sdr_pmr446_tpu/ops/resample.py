@@ -1,6 +1,6 @@
-"""Polyphase rational resampler as a strided MXU convolution.
+"""Polyphase rational resampler as a strided convolution.
 
-TPU-native equivalent of liquid's msresamp_crcf/msresamp_rrrf
+An equivalent of liquid's msresamp_crcf/msresamp_rrrf
 (reference: src/sdr_pmr446.c:425-428, src/dsd_in.c:100-104): instead of a
 multi-stage streaming object, the exact L/M polyphase decimation
 
@@ -8,8 +8,8 @@ multi-stage streaming object, the exact L/M polyphase decimation
     q = floor(j*M/L) + o_f,  r = (j*M) mod L
 
 is laid out as one strided convolution with an [L, W] kernel matrix over
-frames of M input samples (L outputs per frame), so XLA tiles it straight
-onto the MXU.  Blocks must be a multiple of M samples; the carried state is
+frames of M input samples (L outputs per frame), one XLA convolution.
+Blocks must be a multiple of M samples; the carried state is
 the last P-1 input samples (overlap-save).
 """
 

@@ -7,10 +7,10 @@ streaming periodogram: with FFT size ``w`` (the ``-w`` flag), a length
 segment is zero-padded to ``w``, FFT'd, and its ``|X|^2`` accumulated; the
 displayed row is the dB average since the previous row.
 
-This op is the TPU-native block formulation: all hops of a whole block are
-computed as ONE batched FFT over a strided window matrix (built from two
-frame-row slices — windows overlap 50% so no gather is needed), then
-averaged per sub-chunk.  Streaming state is the last ``w/2`` band samples.
+This op is the block formulation: all hops of a whole block are computed
+as ONE batched DFT over a strided window matrix (built from frame-row
+slices — windows overlap 50% so no gather is needed), then averaged per
+sub-chunk.  Streaming state is the last ``w/2`` band samples.
 
 Documented deviations from liquid (display-only, test-gated against
 oracle.asgram_rows which defines the semantics):
@@ -35,7 +35,6 @@ max-hop matrix.
 from __future__ import annotations
 
 import functools
-import math
 
 import numpy as np
 import jax
@@ -73,22 +72,6 @@ def _window(w: int) -> np.ndarray:
     return (win / np.sum(win)).astype(np.float32)   # coherent normalization
 
 
-@functools.lru_cache(maxsize=None)
-def _dft_planes(w: int) -> np.ndarray:
-    """[2, w//2, w] f32: re/im of the zero-padded w-point DFT matrix.
-
-    The hop FFTs are tiny non-power-of-2 transforms (w is typically 64-200)
-    over tens of thousands of windows per block — as a dense DFT they map
-    straight onto the MXU instead of XLA's generic FFT path.  Only the
-    first w//2 rows are needed (hops are zero-padded from w/2 to w).
-    """
-    wl = w // 2
-    j = np.arange(wl)[:, None]
-    k = np.arange(w)[None, :]
-    m = np.exp(-2j * np.pi * j * k / w)
-    return np.stack([m.real, m.imag]).astype(np.float32)
-
-
 def asgram_init(w: int) -> jax.Array:
     return jnp.zeros((hist_len(w),), jnp.complex64)
 
@@ -97,14 +80,11 @@ def asgram_init(w: int) -> jax.Array:
 def _dft_win_packed(w: int) -> np.ndarray:
     """[w, 2w] f32 one-shot window+DFT matrix over PACKED hop rows
     [wr | wi]: out columns f < w give Re S_f, columns w+f give Im S_f,
-    with the Hamming window folded in.  One matmul per step — XLA will
-    not output-fuse a PAIR of dots being added, so splitting re/im into
-    four dots materializes every partial product (hlo-audited); packing
-    the complex combination into one contraction leaves exactly two
-    waterfall buffers: the packed windows and the packed spectra.  (A
-    strided-conv re-expression was also tried and REVERTED: this
-    toolchain lowers a 2-channel stride-16 conv through im2col patch
-    materialization at 2x the windows-matmul traffic.)
+    with the Hamming window folded in.  The hop transforms are tiny
+    non-power-of-2 DFTs (w is typically 64-200) over tens of thousands of
+    windows per block, so they run as one dense matmul; packing the
+    complex combination into one contraction leaves exactly two waterfall
+    buffers: the packed windows and the packed spectra.
     """
     wl = w // 2
     win = _window(w).astype(np.float64)
@@ -135,66 +115,11 @@ def _hop_spectra(xr: jax.Array, xi: jax.Array, w: int, frames: int):
     fi = xi[:need].reshape(frames + 1, delay)
     wcat = jnp.concatenate([fr[:frames], fr[1:],
                             fi[:frames], fi[1:]], axis=-1)   # [n, w]
-    # barrier: XLA otherwise rewrites dot(concat(..)) into a SUM of four
-    # dots, materializing every [n, 2w] partial product (hlo-audited at
-    # 4x this formulation's traffic)
+    # barrier: XLA otherwise may rewrite dot(concat(..)) into a SUM of
+    # four dots, materializing every [n, 2w] partial product
     wcat = jax.lax.optimization_barrier(wcat)
     return jnp.matmul(wcat, jnp.asarray(_dft_win_packed(w)),
                       precision=jax.lax.Precision.HIGHEST)   # [n, 2w]
-
-
-def rows_from_psd_sums(sums: jax.Array, w: int,
-                       subchunk: int = C.SUBCHUNK_RESAMP,
-                       counts: np.ndarray | None = None):
-    """dB rows from per-sub-chunk |S|^2 SUMS (the in-kernel hop-PSD
-    epilogue of kernels/duo.py): same average + fftshift as
-    asgram_rows_p, the sums having been reduced in VMEM.
-
-    ``counts`` (static, [k]) gives the per-sub-chunk hop counts for
-    widths whose hop does not divide the sub-chunk (wf_row_counts);
-    None means the uniform fast-path count subchunk/(w/4)."""
-    if counts is None:
-        p_avg = sums * (1.0 / (subchunk // (w // 4)))
-    else:
-        p_avg = sums / jnp.asarray(counts, jnp.float32)[:, None]
-    rows = 10.0 * jnp.log10(jnp.maximum(p_avg, 1e-30)).astype(jnp.float32)
-    return jnp.fft.fftshift(rows, axes=-1)
-
-
-def wf_row_counts(w: int, k: int,
-                  subchunk: int = C.SUBCHUNK_RESAMP) -> np.ndarray:
-    """Hops per sub-chunk row for a step of k sub-chunks at hop phase 0
-    (a fire at band sample u — 1-based multiples of w/4 — belongs to the
-    sub-chunk containing u, AsgramStream semantics).  Static: the
-    in-kernel general path only engages at phase-reset geometries."""
-    delay = w // 4
-    ends = np.arange(delay, k * subchunk + 1, delay)
-    return np.bincount((ends - 1) // subchunk,
-                       minlength=k).astype(np.float32)
-
-
-def kernel_wf_supported(w: int, subchunk: int = C.SUBCHUNK_RESAMP,
-                        k: int | None = None) -> bool:
-    """True when the duo kernel's in-kernel hop-PSD can serve width w.
-
-    Uniform path (k-independent): whole hops fit a 400-sample group row
-    (w | 1600; the hop then also divides the sub-chunk).  General path
-    (needs k, VERDICT r4 #4 — e.g. the reference-legal ``-w 120``): hop
-    offsets repeat with period P = delay/gcd(400, delay) group rows, so
-    the kernel enumerates hops per phase class with row-selector
-    matmuls; static iff the step resets the hop phase
-    ((k*subchunk) % delay == 0) and a tile with gt % 8P == 0 exists
-    (8P <= 40, the compile-proven max group tile; (49k) % 8P == 0)."""
-    if not (w > 0 and w % 4 == 0 and w // 2 <= 400):
-        return False
-    delay = w // 4
-    if 1600 % w == 0 and 400 % delay == 0 and subchunk % delay == 0:
-        return True
-    if k is None:
-        return False
-    P = delay // math.gcd(400, delay)
-    return ((k * subchunk) % delay == 0 and 8 * P <= 40
-            and (49 * k) % (8 * P) == 0)
 
 
 def asgram_rows(hist: jax.Array, band: jax.Array, k: int, w: int,
@@ -204,16 +129,8 @@ def asgram_rows(hist: jax.Array, band: jax.Array, k: int, w: int,
     Row j is the dB-average periodogram of sub-chunk j's hops (fftshifted,
     DC at center), i.e. exactly what asgramcf_execute prints per chunk.
     """
-    new_hist, rows = asgram_rows_p(
-        hist, jnp.real(band).astype(jnp.float32),
-        jnp.imag(band).astype(jnp.float32), k, w, subchunk)
-    return new_hist, rows
-
-
-def asgram_rows_p(hist: jax.Array, br: jax.Array, bi: jax.Array, k: int,
-                  w: int, subchunk: int = C.SUBCHUNK_RESAMP):
-    """Plane-input fast path (the fused kernels emit band planes — feeding
-    them here skips the complex band materialization entirely)."""
+    br = jnp.real(band).astype(jnp.float32)
+    bi = jnp.imag(band).astype(jnp.float32)
     wl = w // 2
     delay = w // 4
     n_seg = subchunk // delay              # transforms per sub-chunk
@@ -222,9 +139,6 @@ def asgram_rows_p(hist: jax.Array, br: jax.Array, bi: jax.Array, k: int,
     xi = jnp.concatenate([jnp.imag(hist).astype(jnp.float32), bi])
     # hop t's window starts at xe[(t+1)*delay]
     sp = _hop_spectra(xr[delay:], xi[delay:], w, n_tot)  # [n_tot, 2w]
-    # strided-window reduction, NOT reshape(k, n_seg, .).sum(1): n_seg is
-    # not a multiple of 8, so the 3-D view has a different physical
-    # tiling and XLA would copy the whole spectra buffer first
     s2 = jax.lax.reduce_window(
         sp ** 2, 0.0, jax.lax.add, window_dimensions=(n_seg, 1),
         window_strides=(n_seg, 1), padding="VALID")      # [k, 2w]
@@ -259,16 +173,8 @@ def asgram_rows_any(hist: jax.Array, cnt: jax.Array, band: jax.Array,
     returned new_cnt is local to THIS call's k sub-chunks; a sharded
     caller advances the carried counter by the full step outside.
     """
-    return asgram_rows_any_p(
-        hist, cnt, jnp.real(band).astype(jnp.float32),
-        jnp.imag(band).astype(jnp.float32), k, w, subchunk, cnt_offset)
-
-
-def asgram_rows_any_p(hist: jax.Array, cnt: jax.Array, br: jax.Array,
-                      bi: jax.Array, k: int,
-                      w: int, subchunk: int = C.SUBCHUNK_RESAMP,
-                      cnt_offset: jax.Array | None = None):
-    """Plane-input arbitrary-width variant (see asgram_rows_any)."""
+    br = jnp.real(band).astype(jnp.float32)
+    bi = jnp.imag(band).astype(jnp.float32)
     wl = w // 2
     delay = w // 4
     ks = k * subchunk

@@ -2,7 +2,7 @@
 
 A deliberately slow, obviously-correct emulation of the reference C app's
 semantics (stateful per-sample objects, same structure as liquid-dsp usage in
-src/sdr_pmr446.c / src/dsd_in.c) using the *same filter taps* as the TPU
+src/sdr_pmr446.c / src/dsd_in.c) using the *same filter taps* as the JAX
 chain.  It is the differential-test target for every JAX op and for the
 end-to-end scanner:
 

@@ -1,10 +1,10 @@
 """Multi-host (DCN) execution helpers.
 
 The reference is strictly single-host (SURVEY.md §2c: "no NCCL/MPI/Gloo");
-the framework's scale-out axis is BASELINE's "N>=2 hosts" clause: the
+the framework's scale-out axis spans N >= 2 hosts: the
 ``stream``/``time`` mesh of parallel/scanner_sharded.py laid out across
-processes, with JAX inserting DCN collectives between hosts and ICI
-collectives within a host.
+processes, with JAX inserting network collectives between hosts and NVLink
+(NCCL) collectives within a host.
 
 These helpers wrap the three multi-process chores:
   - ``initialize``: jax.distributed.initialize with explicit coordinator
@@ -47,7 +47,7 @@ def global_mesh(n_stream: int, n_time: int,
     """Mesh over the global device list (call after initialize()).
 
     Layout convention: the time axis varies fastest, so one stream's
-    time-shards land on consecutive devices (intra-host ICI where possible)
+    time-shards land on consecutive devices (intra-host where possible)
     and distinct streams map across hosts (DCN-friendly data parallelism) —
     the SURVEY §2c plan.
     """

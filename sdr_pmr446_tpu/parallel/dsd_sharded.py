@@ -21,9 +21,9 @@ from sdr_pmr446_tpu import config as C
 from sdr_pmr446_tpu.taps import design as D
 from sdr_pmr446_tpu.ops import fm
 from sdr_pmr446_tpu.ops.resample import PolyResampler
-from sdr_pmr446_tpu.scanner.dsd_in import (DsdState, PallasDsdState,
-                                           DsdOutputs, stage2_taps,
-                                           up_taps)
+from sdr_pmr446_tpu.ops import decode as decode_op
+from sdr_pmr446_tpu.scanner.dsd_in import (DsdState, DsdOutputs,
+                                           stage2_taps, up_taps)
 from sdr_pmr446_tpu.parallel import halo
 from sdr_pmr446_tpu.parallel.scanner_sharded import STREAM_AXIS, TIME_AXIS
 
@@ -31,49 +31,21 @@ from sdr_pmr446_tpu.parallel.scanner_sharded import STREAM_AXIS, TIME_AXIS
 class ShardedDsdInChain:
     """dsd_in over [n_streams, input_len] blocks on a (stream, time) mesh.
 
-    ``use_pallas`` (subchunks % (8 * n_time) == 0) runs the MONO engine
-    per shard — the whole chain in one kernel (kernels/chan_tail.py) —
-    with the exact-state pre-pass of the sharded DUO scanner
-    (parallel/fused_halo.py): a read-only reduction recovers each
-    shard's true incoming DC state, and every tail halo (front history,
-    band rows, discriminator sample, demod history) is rebuilt from a
-    short corrected DC tail pushed through the XLA resamplers — the
-    unmodified kernel then needs no correction at all.
-
     ``input_format`` "cf32w"/"cs16"/"cu8"/"cs8" feeds raw wire words
-    (time-sharded; words hold whole samples): the mono path decodes
-    in-kernel with the wire-direct pre-pass (kernels/summary.py), the
-    XLA path in one decode pass per shard.
+    (time-sharded; words hold whole samples), decoded in one pass per
+    shard.
     """
 
-    #: DC tail length: covers the 384-sample front history plus the
-    #: 1300-band-sample span that rebuilds the band/sig/demod halos
-    TAIL = 7040
-
     def __init__(self, mesh: Mesh, subchunks_per_step: int = 10,
-                 use_pallas: bool = False, pallas_interpret: bool = False,
                  input_format: str = "cf32"):
-        from sdr_pmr446_tpu.ops import decode as decode_op
         self.mesh = mesh
         self.n_time = mesh.shape[TIME_AXIS]
         self.input_len = subchunks_per_step * C.SUBCHUNK_IN
         assert (self.input_len // self.n_time) % C.INPUT_GRANULE == 0
-        k_local = subchunks_per_step // self.n_time
-        self.mono = bool(use_pallas and k_local % 8 == 0)
-        self._t_local = self.input_len // self.n_time
-        # "cs16"/"cu8"/"cs8"/"cf32w": raw wire words, decoded per
-        # time-shard — in-kernel on the mono path (with the wire-direct
-        # pre-pass, kernels/summary.py), one XLA pass otherwise.  Word
-        # shards hold whole samples, so time sharding needs no re-split.
         if input_format != "cf32" and \
                 input_format not in decode_op.PACKED_FORMATS:
             raise ValueError(f"unsupported input_format: {input_format!r}")
         self.input_format = input_format
-        self._pallas_interpret = pallas_interpret
-        if self.mono:
-            from sdr_pmr446_tpu.kernels.chan_tail import PallasMonoChain
-            self.mono_k = PallasMonoChain("dsd", input_format,
-                                          interpret=pallas_interpret)
         self.res1 = PolyResampler(D.resampler_taps(), C.RESAMP_L, C.RESAMP_M)
         self.res2 = PolyResampler(np.asarray(stage2_taps()), 1, 16)
         self.up = PolyResampler(np.asarray(up_taps()), 96, 25)
@@ -96,8 +68,6 @@ class ShardedDsdInChain:
         self._multi_step = fused_sharded_steps(fn)
 
     def _init_one(self):
-        if self.mono:
-            return PallasDsdState(*self.mono_k.init_state())
         return DsdState(
             dc_x=jnp.zeros((), jnp.complex64),
             dc_y=jnp.zeros((), jnp.complex64),
@@ -122,65 +92,9 @@ class ShardedDsdInChain:
         return self._multi_step(state, iqs)
 
     def _step_shard(self, state, iq: jax.Array):
-        fn = self._step_one_mono if self.mono else self._step_one
-        return jax.vmap(fn)(state, iq)
-
-    def _step_one_mono(self, state, iq: jax.Array):
-        from sdr_pmr446_tpu.parallel import fused_halo as FH
-        from sdr_pmr446_tpu.parallel.fused_halo import _zero_summary_consts
-        ax = TIME_AXIS
-        t_local = self._t_local
-        tail_len = self.TAIL
-        fmt = self.input_format
-        if fmt == "cf32":
-            xr = jnp.real(iq).astype(jnp.float32)
-            xi = jnp.imag(iq).astype(jnp.float32)
-            y00, y_pre, x_pre, xlast, tail_x = FH.front_zero_summary(
-                xr, xi, tail_len)
-        else:
-            # the mono kernel's 2-D wire rows; wire-direct pre-pass
-            # (kernels/summary.py — decoded planes never reach HBM)
-            if fmt == "cf32w":
-                iq = iq.reshape(t_local // 128, 256)
-            else:
-                iq = iq.reshape(-1, 128)
-            y00, y_pre, x_pre, xlast, tail_x = FH.front_zero_summary_wire(
-                iq, fmt, t_local, tail_len,
-                interpret=self._pallas_interpret)
-        dcx_in, dcx_carry = halo.shard_scalar_prev(state.dc_x,
-                                                   xlast[None], ax)
-        zc = _zero_summary_consts(t_local, tail_len)
-        y_in, delta, dcy_carry, _ = FH.compose_dc_chain(
-            y00, xlast, state.dc_y, state.dc_x, zc["p_t1"], FH._G, ax)
-        dc_tail = FH.dc_tail_exact(tail_x, y_pre, x_pre, delta, t_local)
-
-        # halos rebuilt from the corrected tail (all pre-kernel)
-        fh_true = dc_tail[-self.mono_k.front_hist_len:]
-        fh_in, fh_carry = FH.shard_pass_right(state.front_hist, fh_true, ax)
-        r1 = self.res1
-        _, band_tail = r1.apply(dc_tail[384 - r1.hist_len:384],
-                                dc_tail[384:])             # [1300] c64
-        bh_true = band_tail[-800:]
-        bh_in, bh_carry = FH.shard_pass_right(state.band_hist, bh_true, ax)
-        r2 = self.res2
-        _, sig_tail = r2.apply(band_tail[-816 - r2.hist_len:-816],
-                               band_tail[-816:])           # [51] c64
-        sp_true = sig_tail[-1]
-        sp_in, sp_carry = FH.shard_pass_right(state.sig_prev, sp_true, ax)
-        _, dem_tail = fm.fm_demod(sig_tail[0], sig_tail[1:])   # [50] f32
-        dh_in, dh_carry = FH.shard_pass_right(state.demod_hist, dem_tail,
-                                              ax)
-
-        # the UNMODIFIED mono kernel with exact incoming state
-        (_, _, _, _, _, _, out48) = self.mono_k.apply(
-            dcx_in, y_in, fh_in, bh_in, sp_in, dh_in, iq)
-        pcm = out48.astype(jnp.int16)          # scaled+clipped in-kernel
-        new_state = PallasDsdState(dcx_carry, dcy_carry, fh_carry,
-                                   bh_carry, sp_carry, dh_carry)
-        return new_state, DsdOutputs(pcm=pcm)
+        return jax.vmap(self._step_one)(state, iq)
 
     def _step_one(self, state: DsdState, iq: jax.Array):
-        from sdr_pmr446_tpu.ops import decode as decode_op
         ax = TIME_AXIS
         if self.input_format != "cf32":
             iq = decode_op.decode_complex(iq, self.input_format)

@@ -4,13 +4,13 @@ This is the distributed backbone of SURVEY.md §2c: when one IQ stream's time
 axis is sharded across devices, every causal filter needs the last
 ``hist_len`` samples of its LEFT neighbor's shard (overlap-save).  Inside a
 ``shard_map`` these helpers exchange exactly that via ``ppermute`` over the
-ICI mesh axis, and reconstruct the cross-block carried state from the LAST
+time mesh axis (NCCL on GPUs), and reconstruct the cross-block carried state from the LAST
 shard.
 
 One-pole IIRs can't use a finite halo exactly; instead the recurrence is
 solved from zero state per shard and corrected with an affine carry
 composition over the gathered per-shard endpoints — exact, one small
-``all_gather`` of scalars per section (the TPU equivalent of the reference's
+``all_gather`` of scalars per section (the block equivalent of the reference's
 single retained y[-1], src/sdr_pmr446.c:422,450).
 """
 

@@ -1,12 +1,12 @@
 """Pod-scale scanner: streams x time-shards over a 2-D device mesh.
 
-The distributed execution design of SURVEY.md §2c/§5 (BASELINE.json config 5):
+The distributed execution design of SURVEY.md §2c/§5:
 
   - mesh axis 'stream': data-parallel over independent IQ captures/bands
-    (DCN-friendly — zero cross-talk);
+    (zero cross-talk);
   - mesh axis 'time': one stream's block sharded along time, with
-    filter-history halo exchange over ICI (ppermute) for every FIR and an
-    exact affine carry composition for the one-pole IIRs (parallel/halo.py);
+    filter-history halo exchange (ppermute) for every FIR and an exact
+    affine carry composition for the one-pole IIRs (parallel/halo.py);
   - the sequential sub-chunk logic (squelch FSM + CTCSS scan) runs
     replicated on all-gathered per-sub-chunk summaries — audio-rate data is
     ~82x smaller than the input, so the gather is negligible next to the
@@ -45,19 +45,14 @@ class ShardedScannerChain:
 
     def __init__(self, mesh: Mesh, block: C.BlockConfig | None = None,
                  lowpass: bool = False, fir_deemph: bool = False,
-                 waterfall: int = 0, halo_dma: bool = False,
-                 use_pallas: bool = False, pallas_interpret: bool = False,
-                 input_format: str = "cf32", fuse_dc: bool = True,
-                 fuse_lp_dc: bool = True, fuse_rssi: bool = True,
-                 fuse_group: bool = True, fuse_ctcss: bool = True,
-                 pfb_packed: bool = True, fuse_band: bool = True):
+                 waterfall: int = 0, input_format: str = "cf32"):
         self.mesh = mesh
         self.block = block or C.BlockConfig()
-        # "cs16"/"cu8": step takes [S, words] raw wire bytes packed as f32
-        # transport words, decoded per time-shard on device (ops/decode.py).
-        # Word shards decode to contiguous sample shards (1 or 2 samples
-        # per word, and local word counts are even), so halo semantics are
-        # unchanged.
+        # "cs16"/"cu8"/"cs8"/"cf32w": step takes [S, words] raw wire bytes
+        # packed as f32 transport words, decoded per time-shard on device
+        # (ops/decode.py).  Word shards decode to contiguous sample shards
+        # (words hold whole samples, and local word counts are even), so
+        # halo semantics are unchanged.
         self.input_format = input_format
         if input_format != "cf32" and \
                 input_format not in decode_op.PACKED_FORMATS:
@@ -65,79 +60,10 @@ class ShardedScannerChain:
         self.lowpass = lowpass
         self.waterfall = waterfall
         spectrogram.validate_width(waterfall)
-        self.use_pallas = use_pallas
         self.n_time = mesh.shape[TIME_AXIS]
         self.n_stream = mesh.shape[STREAM_AXIS]
         assert self.block.subchunks_per_step % self.n_time == 0, (
             "subchunks_per_step must divide evenly across the time axis")
-        k_local = self.block.subchunks_per_step // self.n_time
-        # FUSED flagship path (the engine bench.py records): in-kernel DC
-        # blockers + wire decode, GROUP-major band handoff, in-kernel RSSI
-        # segments and CTCSS DFT.  All-or-nothing like the single-chip
-        # gating (scanner/chain.py): the group geometry needs K % 8 == 0
-        # PER SHARD; otherwise the round-1 per-op kernel set runs.  The
-        # cross-shard one-pole carries use zero-init kernel runs + exact
-        # affine post-correction (parallel/fused_halo.py).
-        self.pfb_packed = pfb_packed
-        self.fused = bool(use_pallas and fuse_dc and fuse_lp_dc
-                          and fuse_rssi and fuse_group and fuse_ctcss
-                          and k_local % 8 == 0)
-        # mirror the single-chip chain's flag names so engine-keyed
-        # consumers (bench._min_traffic) see the configuration that ran
-        self.fuse_dc = self.fuse_lp_dc = self.fuse_rssi = self.fused
-        self.fuse_group = self.fuse_ctcss = self.fused
-        if use_pallas:
-            from sdr_pmr446_tpu.kernels.pfb_demod import PallasPfbDemod
-            from sdr_pmr446_tpu.kernels.resample_kernel import PallasResampler
-            from sdr_pmr446_tpu.kernels.audio_bank import PallasAudioBank
-            self.pallas_pfb = PallasPfbDemod(tile_f=512,
-                                             interpret=pallas_interpret)
-            self.pallas_resampler = PallasResampler(
-                tile_f=512, interpret=pallas_interpret)
-            self.pallas_audio = PallasAudioBank(
-                lowpass=lowpass, fir_deemph=fir_deemph,
-                interpret=pallas_interpret)
-        # DUO variant: front+PFB one-kernel (kernels/duo.py) per shard,
-        # with an exact-state READ-ONLY pre-pass instead of the zero-init
-        # + band-correction recipe (the duo never materializes a band to
-        # correct) — parallel/fused_halo.py front_zero_summary.  With the
-        # waterfall on, the kernel emits the band once (band_out) for the
-        # spgram tap.
-        self.fused_duo = bool(self.fused and fuse_band)
-        self.fuse_band = self.fused_duo
-        if self.fused:
-            from sdr_pmr446_tpu.kernels.front_end import PallasFrontEnd
-            from sdr_pmr446_tpu.parallel import fused_halo
-            self.pallas_front = PallasFrontEnd(
-                interpret=pallas_interpret,
-                wide=input_format in ("cu8", "cs8"))
-            t_local = self.block.input_len // self.n_time
-            self._fe_consts = fused_halo.front_end_consts(
-                t_local, self.pallas_front.hist_len)
-            self._ct_consts = fused_halo.ctcss_corr_consts(
-                k_local, C.SUBCHUNK_AUDIO)
-            self._t_local = t_local
-        if self.fused_duo:
-            from sdr_pmr446_tpu.kernels.duo import PallasScannerDuo
-            self.pallas_duo = PallasScannerDuo(
-                input_format, interpret=pallas_interpret)
-            self._pallas_interpret = pallas_interpret
-        # halo transport for the two front-end FIR histories: ppermute
-        # collectives (default) or the Pallas remote-DMA ring shift
-        # (kernels/halo_dma.py; interpret-simulated off-TPU)
-        if halo_dma:
-            import functools
-            from sdr_pmr446_tpu.kernels import halo_dma as hdma
-            interp = jax.default_backend() != "tpu"
-            # distinct collective_ids: two concurrent ring shifts in one
-            # program need their own DMA semaphore sets
-            self._hist_resamp = functools.partial(
-                hdma.shard_hist_dma, interpret=interp, collective_id=1)
-            self._hist_pfb = functools.partial(
-                hdma.shard_hist_dma, interpret=interp, collective_id=2)
-        else:
-            self._hist_resamp = halo.shard_hist
-            self._hist_pfb = halo.shard_hist
 
         self.resampler = PolyResampler(D.resampler_taps(), C.RESAMP_L,
                                        C.RESAMP_M)
@@ -148,16 +74,9 @@ class ShardedScannerChain:
                             else D.deemph_fir_equiv()).astype(np.float32)
         self.deemph_hist_len = self.deemph_taps.shape[0] - 1
 
-        if len(self.step_arg_shape) == 2:
-            # fused wire formats take the kernels' native 2-D row layout
-            # [S, rows, width]: rows shard over time (row counts divide
-            # evenly — K_local % 8 == 0 implies whole rows per shard)
-            iq_spec = P(STREAM_AXIS, TIME_AXIS, None)
-        else:
-            iq_spec = P(STREAM_AXIS, TIME_AXIS)     # iq [S, T]
         in_specs = (
             jax.tree.map(lambda _: P(STREAM_AXIS), self._state_struct()),
-            iq_spec,
+            P(STREAM_AXIS, TIME_AXIS),                # iq [S, T]
             jax.tree.map(lambda _: P(), RuntimeParams(0, 0, 0, 0)),
         )
         out_specs = (
@@ -174,14 +93,9 @@ class ShardedScannerChain:
 
     # -- pytree structure helpers (specs need matching treedefs) ----------
     def _state_struct(self):
-        resamp_hist_len = (self.pallas_front.hist_len if self.fused
-                           else self.resampler.hist_len)
-        return init_scanner_state(resamp_hist_len, self.pfb.hist_len,
-                                  self.deemph_hist_len,
-                                  waterfall=self.waterfall,
-                                  audio_hist_len=(self.pallas_audio.hist
-                                                  if self.use_pallas
-                                                  else 4 * 128))
+        return init_scanner_state(self.resampler.hist_len,
+                                  self.pfb.hist_len, self.deemph_hist_len,
+                                  waterfall=self.waterfall)
 
     def _out_struct(self):
         return StepOutputs(*([0] * len(StepOutputs._fields)))
@@ -199,398 +113,28 @@ class ShardedScannerChain:
             return self.block.input_len
         return decode_op.packed_len(self.block.input_len, self.input_format)
 
-    @property
-    def step_arg_shape(self) -> tuple:
-        """PREFERRED per-stream step() input shape (prepend the stream
-        axis when calling step()).  The fused wire formats take the
-        kernels' native 2-D row layout, exactly like the single-chip
-        chain (scanner/chain.py::step_arg_shape) — a free host reshape
-        of the same bytes that also lets the time axis shard whole rows."""
-        if self.fused and self.input_format != "cf32":
-            if self.input_format == "cf32w":
-                return (self.block.input_len // 128, 256)
-            return (self.step_arg_len // 128, 128)
-        return (self.step_arg_len,)
-
-    def _shape_iq(self, iq: jax.Array, lead: int) -> jax.Array:
-        """Reshape flat wire words to the fused path's [.., rows, width]
-        row layout (a free view; callers may also pre-shape)."""
-        want = self.step_arg_shape
-        if iq.ndim != lead + len(want):
-            iq = iq.reshape(iq.shape[:lead] + want)
-        return iq
-
     def step(self, state: ScannerState, iq: jax.Array,
              params: RuntimeParams):
         """iq: [n_streams, input_len] complex64 (cf32) or
-        [n_streams, *step_arg_shape] packed f32 wire words (cs16/cu8/
-        cf32w; flat [n_streams, step_arg_len] also accepted)."""
-        return self._step(state, self._shape_iq(iq, 1), params)
+        [n_streams, step_arg_len] packed f32 wire words (cs16/cu8/cs8/
+        cf32w)."""
+        return self._step(state, iq, params)
 
     def multi_step(self, state: ScannerState, iqs: jax.Array,
                    params: RuntimeParams):
         """S stacked blocks in one dispatch: iqs [S, n_streams,
-        *step_arg_shape]; output leaves come back [n_streams, S*K, ...] —
+        step_arg_len]; output leaves come back [n_streams, S*K, ...] —
         per stream and in order, equal to S step() calls (decisions
         exactly, floats to f32 rounding; tests/test_multistep.py — see
         runtime/fuse.py for the rationale)."""
-        return self._multi_step(state, self._shape_iq(iqs, 2), params)
+        return self._multi_step(state, iqs, params)
 
     # ------------------------------------------------------------------
     def _step_shard(self, state: ScannerState, iq: jax.Array,
                     params: RuntimeParams):
         """Per-device body under shard_map: iq [S_local, T_local]."""
-        fn = (self._step_one_stream_fused if self.fused
-              else self._step_one_stream)
-        single = functools.partial(fn, params=params)
+        single = functools.partial(self._step_one_stream, params=params)
         return jax.vmap(single)(state, iq)
-
-    def _duo_front_pfb(self, state, iq, ax, d, ntime, K_local, ns,
-                       fmt, fe, FH, last_frame_output):
-        """Front end + PFB for the sharded DUO engine (one kernel, band
-        never in HBM): a READ-ONLY pre-pass (fused_halo.front_zero_summary)
-        plus compose_dc_chain recover each shard's TRUE incoming DC state,
-        and the outgoing halos (resampler tail, PFB band row, last-frame
-        candidate) are rebuilt from a short corrected DC tail pushed
-        through the XLA resampler — so the UNMODIFIED duo kernel runs with
-        exact state and needs no post-correction at all.
-
-        With ONE time shard (the stream-parallel serving configs —
-        scan_batch/batch8 run (S, 1) meshes) the carried state IS the
-        exact incoming state, so the pre-pass — whose dominant cost is a
-        second read of the whole input block — is skipped and the kernel
-        runs exactly like the unsharded chain (round 5; the sharded ==
-        unsharded gates cover (2, 1) meshes)."""
-        if ntime == 1:
-            wf_in_kernel = (self.waterfall > 0 and
-                            spectrogram.kernel_wf_supported(
-                                self.waterfall, k=K_local))
-            duo_out = self.pallas_duo.apply(
-                state.dc_x, state.dc_y, state.resamp_hist,
-                state.pfb_hist, state.frame_parity, state.demod_prev,
-                iq, ns,
-                band_out=self.waterfall > 0 and not wf_in_kernel,
-                waterfall_w=self.waterfall if wf_in_kernel else 0)
-            (dcx_c, dcy_c, rh_c, demod3, mag_sums, ph_c, new_parity,
-             fm_c) = duo_out[:8]
-            wf_r = wf_i = wf_rows_k = None
-            if wf_in_kernel:
-                counts = (None
-                          if spectrogram.uses_fast_path(self.waterfall)
-                          else spectrogram.wf_row_counts(self.waterfall,
-                                                         K_local))
-                wf_rows_k = spectrogram.rows_from_psd_sums(
-                    duo_out[8], self.waterfall, counts=counts)
-            elif self.waterfall > 0:
-                wf_r = duo_out[8][0].reshape(-1)
-                wf_i = duo_out[8][1].reshape(-1)
-            rssi_local = 20.0 * jnp.log10(
-                jnp.maximum(mag_sums * (1.0 / ns), 1e-30))
-            demod = demod3.reshape(C.NUM_CHANNELS, K_local * ns)
-            return (dcx_c, dcy_c, rh_c, ph_c, fm_c, new_parity,
-                    rssi_local, demod, wf_r, wf_i, wf_rows_k)
-        t_local = self._t_local
-        tail_len = 2560                    # covers 512 hist + 416-band span
-        if fmt == "cf32":
-            xr = jnp.real(iq).astype(jnp.float32)
-            xi = jnp.imag(iq).astype(jnp.float32)
-            y00, y_pre, x_pre, xlast, tail_x = FH.front_zero_summary(
-                xr, xi, tail_len)
-        else:
-            # wire-direct pre-pass: a read-only Pallas kernel decodes in
-            # VMEM and emits only the row summaries — the decoded [T]
-            # planes never exist in HBM (kernels/summary.py)
-            y00, y_pre, x_pre, xlast, tail_x = FH.front_zero_summary_wire(
-                iq, fmt, t_local, tail_len,
-                interpret=self._pallas_interpret)
-        dcx_in, dcx_carry = halo.shard_scalar_prev(state.dc_x,
-                                                   xlast[None], ax)
-        from sdr_pmr446_tpu.parallel.fused_halo import _zero_summary_consts
-        zc = _zero_summary_consts(t_local, tail_len)
-        y_in, delta, dcy_carry, _ = FH.compose_dc_chain(
-            y00, xlast, state.dc_y, state.dc_x, zc["p_t1"], FH._G, ax)
-        dc_tail = FH.dc_tail_exact(tail_x, y_pre, x_pre, delta, t_local)
-
-        # outgoing halos from the corrected tail (all pre-kernel)
-        tail_true = dc_tail[-fe.hist_len:]
-        hist_in, rh_carry = FH.shard_pass_right(state.resamp_hist,
-                                                tail_true, ax)
-        res = self.resampler
-        _, band_tail = res.apply(dc_tail[384 - res.hist_len:384],
-                                 dc_tail[384:])
-        row_out = band_tail[-400:]
-        pfb_hist_in, ph_carry = FH.shard_pass_right(state.pfb_hist,
-                                                    row_out, ax)
-        g_local = t_local // 2048
-        f_local = 25 * g_local
-        parity_d = (state.frame_parity + d * f_local) % 2
-        lsign = (1.0 - 2.0 * ((parity_d + f_local - 1) % 2)
-                 ).astype(jnp.float32)
-        cand = last_frame_output(
-            jnp.real(band_tail[-416:]).astype(jnp.float32),
-            jnp.imag(band_tail[-416:]).astype(jnp.float32), lsign)
-        fm_prev, fm_carry = halo.shard_scalar_prev(state.demod_prev,
-                                                   cand[:, None], ax)
-
-        # the duo kernel with EXACT incoming state (its returned carries
-        # equal the pre-pass values; the halo'd ones are kept).  General
-        # widths gate on K_local: every shard then starts at hop phase 0
-        # ((K_local*subchunk) % delay == 0), so one static geometry
-        # serves all shards
-        wf_in_kernel = (self.waterfall > 0 and
-                        spectrogram.kernel_wf_supported(self.waterfall,
-                                                        k=K_local))
-        duo_out = self.pallas_duo.apply(
-            dcx_in, y_in, hist_in, pfb_hist_in, parity_d, fm_prev, iq, ns,
-            band_out=self.waterfall > 0 and not wf_in_kernel,
-            waterfall_w=self.waterfall if wf_in_kernel else 0)
-        demod3, mag_sums = duo_out[3], duo_out[4]
-        wf_r = wf_i = wf_rows_k = None
-        if wf_in_kernel:
-            # local [K_local, w] rows; the sliding-window history is the
-            # PFB band-row halo itself (pfb_hist_in), already exact
-            counts = (None
-                      if spectrogram.uses_fast_path(self.waterfall)
-                      else spectrogram.wf_row_counts(self.waterfall,
-                                                     K_local))
-            wf_rows_k = spectrogram.rows_from_psd_sums(duo_out[8],
-                                                       self.waterfall,
-                                                       counts=counts)
-        elif self.waterfall > 0:
-            wf_r = duo_out[8][0].reshape(-1)
-            wf_i = duo_out[8][1].reshape(-1)
-        new_parity = (state.frame_parity + ntime * f_local) % 2
-        rssi_local = 20.0 * jnp.log10(
-            jnp.maximum(mag_sums * (1.0 / ns), 1e-30))
-        demod = demod3.reshape(C.NUM_CHANNELS, K_local * ns)
-        return (dcx_carry, dcy_carry, rh_carry, ph_carry, fm_carry,
-                new_parity, rssi_local, demod, wf_r, wf_i, wf_rows_k)
-
-    def _fused_front_pfb(self, state, iq, ax, d, ntime, K_local, ns,
-                         fmt, fe, fc, FH, last_frame_output):
-        """Front end + PFB for the sharded fused TRIO: zero-init
-        kernel runs + affine band correction (see class docstring).
-        Returns (dcx_carry, dcy_carry, rh_carry, ph_carry, fm_carry,
-        new_parity, rssi_local, demod, band_r, band_i)."""
-        # 0. the DC blocker's x[-1] is exact via a 1-sample halo (the
-        # last raw sample decodes in a few scalar XLA ops per format)
-        if fmt == "cf32":
-            xlast = iq[-1].astype(jnp.complex64)
-        elif fmt == "cf32w":
-            r = iq.shape[0]
-            xlast = jax.lax.complex(iq[r - 1, 254], iq[r - 1, 255])
-        else:
-            r = iq.shape[0]
-            xr_l, xi_l = decode_op.decode_planes(iq[r - 1, 127:128], fmt)
-            i_last = 1 if fmt in ("cu8", "cs8") else 0
-            xlast = jax.lax.complex(xr_l[i_last], xi_l[i_last])
-        dcx_in, dcx_carry = halo.shard_scalar_prev(state.dc_x,
-                                                   xlast[None], ax)
-
-        # 1+2. fused front end from zero y / zero history (group output)
-        zy = jnp.zeros((), jnp.complex64)
-        zh = jnp.zeros((fe.hist_len,), jnp.complex64)
-        if fmt == "cf32w":
-            _, dcy0, hist0, bwr0, bwi0 = fe.apply_interleaved(
-                dcx_in, zy, zh, iq, group_out=True)
-        elif fmt == "cs16":
-            _, dcy0, hist0, bwr0, bwi0 = fe.apply_packed(
-                dcx_in, zy, zh, iq, group_out=True)
-        elif fmt in ("cu8", "cs8"):
-            _, dcy0, hist0, bwr0, bwi0 = fe.apply_packed2(
-                dcx_in, zy, zh, iq, fmt, group_out=True)
-        else:
-            _, dcy0, hist0, bwr0, bwi0 = fe.apply_iq(
-                dcx_in, zy, zh, iq, group_out=True)
-
-        # compose the IQ DC y across shards (g=0: x[-1] was exact) and
-        # correct the carried history + the band planes
-        y_in, _, dcy_carry, _ = FH.compose_dc_chain(
-            dcy0, xlast, state.dc_y, state.dc_x, fc["p_t1"], 0.0, ax)
-        tail_true = hist0 + y_in * jnp.asarray(fc["tail_ramp"])
-        hist_in, rh_carry = FH.shard_pass_right(state.resamp_hist,
-                                                tail_true, ax)
-        bwr = FH.correct_band(bwr0, jnp.real(y_in).astype(jnp.float32),
-                              jnp.real(hist_in).astype(jnp.float32), fc)
-        bwi = FH.correct_band(bwi0, jnp.imag(y_in).astype(jnp.float32),
-                              jnp.imag(hist_in).astype(jnp.float32), fc)
-
-        # 3-5. PFB group kernel: one-group-row history halo + the 416-tap
-        # last-frame discriminator halo (same recipe as the row path)
-        g_local = bwr.shape[0]
-        f_local = 25 * g_local
-        parity_d = (state.frame_parity + d * f_local) % 2
-        band_r = bwr.reshape(-1)
-        band_i = bwi.reshape(-1)
-        lsign = (1.0 - 2.0 * ((parity_d + f_local - 1) % 2)
-                 ).astype(jnp.float32)
-        cand = last_frame_output(band_r[-416:], band_i[-416:], lsign)
-        fm_prev, fm_carry = halo.shard_scalar_prev(state.demod_prev,
-                                                   cand[:, None], ax)
-        tail_row = jax.lax.complex(bwr[g_local - 1], bwi[g_local - 1])
-        pfb_hist_in, ph_carry = FH.shard_pass_right(state.pfb_hist,
-                                                    tail_row, ax)
-        demod3, mag_sums, _, _, _ = self.pallas_pfb.call_group(
-            bwr, bwi, pfb_hist_in, parity_d, fm_prev, ns,
-            packed=self.pfb_packed)
-        new_parity = (state.frame_parity + ntime * f_local) % 2
-        rssi_local = 20.0 * jnp.log10(
-            jnp.maximum(mag_sums * (1.0 / ns), 1e-30))     # [K_local, 16]
-        demod = demod3.reshape(C.NUM_CHANNELS, K_local * ns)
-        return (dcx_carry, dcy_carry, rh_carry, ph_carry, fm_carry,
-                new_parity, rssi_local, demod, band_r, band_i)
-
-    def _step_one_stream_fused(self, state: ScannerState, iq: jax.Array,
-                               params: RuntimeParams):
-        """The FLAGSHIP fused engine, time-sharded.
-
-        Per shard: the unmodified fused kernels run with ZERO incoming
-        one-pole state; the exact incoming state is recovered by a tiny
-        gathered fold and applied as affine post-corrections (band ramp +
-        history block for the IQ blocker, geometric-phasor tone-sum terms
-        for the CTCSS-branch blocker) — parallel/fused_halo.py.  FIR-class
-        carries (resampler history, PFB group row, discriminator previous
-        frame, audio look-behind) move as plain halos of materialized
-        kernel outputs.  The FSM schedule and detection chains run
-        replicated on all-gathered [K, 16] RSSI / [K, 38] tone sums,
-        exactly like the round-1 sharded path."""
-        from sdr_pmr446_tpu.parallel import fused_halo as FH
-        from sdr_pmr446_tpu.kernels.pfb_demod import last_frame_output
-        from sdr_pmr446_tpu.scanner.fsm import (fsm_phase_a,
-                                                raw_sums_to_ctcss,
-                                                fsm_phase_c)
-        ax = TIME_AXIS
-        ntime = self.n_time
-        d = jax.lax.axis_index(ax)
-        K = self.block.subchunks_per_step
-        K_local = K // ntime
-        ns = C.SUBCHUNK_AUDIO
-        fmt = self.input_format
-        fe = self.pallas_front
-        fc = self._fe_consts
-
-        wf_rows_k = None
-        if self.fused_duo:
-            (dcx_carry, dcy_carry, rh_carry, ph_carry, fm_carry,
-             new_parity, rssi_local, demod, band_r, band_i,
-             wf_rows_k) = \
-                self._duo_front_pfb(state, iq, ax, d, ntime, K_local,
-                                    ns, fmt, fe, FH,
-                                    last_frame_output)
-        else:
-            (dcx_carry, dcy_carry, rh_carry, ph_carry, fm_carry,
-             new_parity, rssi_local, demod, band_r, band_i) = \
-                self._fused_front_pfb(state, iq, ax, d, ntime,
-                                      K_local, ns, fmt, fe, fc, FH,
-                                      last_frame_output)
-
-        # 6b. waterfall rows on the corrected local band PLANES (the _p
-        # asgram variants never materialize a complex band; the halo moves
-        # per-plane tails and only the tiny [w/2] history goes complex)
-        wf_cnt = state.wf_cnt
-        if wf_rows_k is not None:
-            wf_rows = wf_rows_k
-            wf_carry = state.wf_hist
-        elif self.waterfall > 0:
-            wl2 = spectrogram.hist_len(self.waterfall)
-            whr, wcr = halo.shard_hist(
-                jnp.real(state.wf_hist).astype(jnp.float32), band_r,
-                wl2, ax)
-            whi, wci = halo.shard_hist(
-                jnp.imag(state.wf_hist).astype(jnp.float32), band_i,
-                wl2, ax)
-            wf_carry = jax.lax.complex(wcr, wci)
-            wf_hist_loc = jax.lax.complex(whr, whi)
-            if spectrogram.uses_fast_path(self.waterfall):
-                _, wf_rows = spectrogram.asgram_rows_p(
-                    wf_hist_loc, band_r, band_i, K_local, self.waterfall)
-            else:
-                s_local = K_local * C.SUBCHUNK_RESAMP
-                _, _, wf_rows = spectrogram.asgram_rows_any_p(
-                    wf_hist_loc, state.wf_cnt, band_r, band_i, K_local,
-                    self.waterfall, cnt_offset=d * s_local)
-                delay = self.waterfall // 4
-                wf_cnt = (state.wf_cnt + ntime * s_local) % delay
-        else:
-            wf_carry = state.wf_hist
-            wf_rows = jnp.zeros((K_local, 0), jnp.float32)
-
-        # 7a. replicated RSSI-only schedule from the gathered sums
-        rssi_all = jax.lax.all_gather(rssi_local, ax, tiled=True)  # [K, 16]
-        carry_in = FsmCarry(state.fsm_state, state.active_chan, state.rssi,
-                            state.ct_count, state.ct_carry,
-                            state.ct_detected, state.ct_max_idx,
-                            state.ct_freq)
-        sched = fsm_phase_a(carry_in, rssi_all, params.channel_mask,
-                            params.squelch_level, params.lock_max, ns)
-        sel_all = jnp.clip(sched.act2, 0, C.NUM_CHANNELS - 1)
-        off = d * K_local
-        sel_loc = jax.lax.dynamic_slice_in_dim(sel_all, off, K_local)
-        b_loc = jax.lax.dynamic_slice_in_dim(sched.b_arr, off, K_local)
-
-        # 6. fused audio bank + in-kernel CTCSS DFT from zero lp-DC state;
-        # the zero-state error in the tone sums is delta * zeta^pos —
-        # added back exactly from host-float64 geometric-phasor tables
-        ah_local, ah_carry = halo.shard_hist(
-            state.audio_hist, demod, state.audio_hist.shape[-1], ax)
-        z16 = jnp.zeros((C.NUM_CHANNELS,), jnp.float32)
-        _, ndx0, dcy0_lp, audio_all, raw_pre, raw_mem = \
-            self.pallas_audio.apply_dc_ctcss(
-                ah_local, z16, z16, demod, params.audio_gain, b_loc,
-                sel_loc, out_len=K_local * ns, ns=ns)
-        cc = self._ct_consts
-        _, delta_lp, lpy_carry, lpx_carry = FH.compose_dc_chain(
-            dcy0_lp, ndx0, state.lp_dc_y, state.lp_dc_x, cc["p_t1"],
-            FH._G, ax)
-        delta_sel = jnp.take(delta_lp, sel_loc)            # [K_local]
-        raw_pre, raw_mem = FH.correct_raw_sums(raw_pre, raw_mem,
-                                               delta_sel, b_loc, cc, ns)
-
-        # 7b. gather tone sums; replicated detection chains.  period =
-        # K_local: each shard's kernel phase restarts at its own sample 0
-        pre_all = jax.lax.all_gather(raw_pre, ax, tiled=True)   # [K, 38]
-        mem_all = jax.lax.all_gather(raw_mem, ax, tiled=True)
-        s_pre, s_suf = raw_sums_to_ctcss(sched, pre_all, mem_all, ns,
-                                         period=K_local)
-        carry_out, fo = fsm_phase_c(carry_in, sched, s_pre, s_suf)
-
-        # 8. local audio selection straight from the padded kernel plane
-        cols = (jnp.arange(K_local, dtype=jnp.int32)[:, None] * ns
-                + jnp.arange(ns, dtype=jnp.int32)[None, :])   # [K_local, ns]
-        audio_sel = audio_all[sel_loc[:, None], cols]
-
-        loc = lambda a: jax.lax.dynamic_slice_in_dim(a, off, K_local)
-        outputs = StepOutputs(
-            audio=audio_sel, audio_valid=loc(fo.active_chan >= 0),
-            active_chan=loc(fo.active_chan), rel_rssi=loc(fo.rel_rssi),
-            rssi_db=rssi_local,
-            ev_tuned=loc(fo.ev_tuned), ev_detuned=loc(fo.ev_detuned),
-            ev_changed=loc(fo.ev_changed), ev_prev_chan=loc(fo.ev_prev_chan),
-            ev_new_chan=loc(fo.ev_new_chan),
-            ct_detected=loc(fo.ct_detected), ct_max_idx=loc(fo.ct_max_idx),
-            ct_freq=loc(fo.ct_freq),
-            ev_ct_acquired=loc(fo.ev_ct_acquired),
-            ev_ct_changed=loc(fo.ev_ct_changed),
-            ev_ct_lost=loc(fo.ev_ct_lost),
-            waterfall=wf_rows,
-        )
-        new_state = ScannerState(
-            dc_x=dcx_carry, dc_y=dcy_carry, resamp_hist=rh_carry,
-            pfb_hist=ph_carry, frame_parity=new_parity,
-            demod_prev=fm_carry,
-            hp_hist=state.hp_hist, delay_hist=state.delay_hist,
-            lp_dc_x=lpx_carry, lp_dc_y=lpy_carry,
-            deemph_hist=state.deemph_hist,
-            audio_lp_hist=state.audio_lp_hist, audio_hist=ah_carry,
-            fsm_state=carry_out.fsm_state,
-            active_chan=carry_out.active_chan,
-            rssi=carry_out.rssi, ct_count=carry_out.ct_count,
-            ct_carry=carry_out.ct_carry,
-            ct_detected=carry_out.ct_detected,
-            ct_max_idx=carry_out.ct_max_idx, ct_freq=carry_out.ct_freq,
-            wf_hist=wf_carry, wf_cnt=wf_cnt,
-        )
-        return new_state, outputs
 
     def _step_one_stream(self, state: ScannerState, iq: jax.Array,
                          params: RuntimeParams):
@@ -610,107 +154,50 @@ class ShardedScannerChain:
         (dc_x, dc_y), x = halo.shard_dc_blocker(
             (state.dc_x, state.dc_y), iq, C.DC_BLOCK_ALPHA, ax)
 
-        if self.use_pallas:
-            from sdr_pmr446_tpu.kernels.pfb_demod import last_frame_output
+        # 2. resampler with input-history halo
+        rhist, r_carry = halo.shard_hist(state.resamp_hist, x,
+                                         self.resampler.hist_len, ax)
+        _, band = self.resampler.apply(rhist, x)
 
-            # 2. resampler kernel (plane in, plane out) with input halo
-            rhist, r_carry = self._hist_resamp(state.resamp_hist, x,
-                                               self.resampler.hist_len, ax)
-            _, br, bi = self.pallas_resampler.apply_planes(
-                rhist, jnp.real(x).astype(jnp.float32),
-                jnp.imag(x).astype(jnp.float32))
-            band_r = br.reshape(-1)
-            band_i = bi.reshape(-1)
-            band = None
-            if self.waterfall > 0:
-                band = jax.lax.complex(band_r, band_i)
+        # 3. PFB with band-history halo; frame parity offset per shard
+        phist, p_carry = halo.shard_hist(state.pfb_hist, band,
+                                         self.pfb.hist_len, ax)
+        f_local = band.shape[-1] // C.NUM_CHANNELS
+        parity = (state.frame_parity + d * f_local) % 2
+        (_, _), chan = self.pfb.apply((phist, parity), band)
+        new_parity = (state.frame_parity + ntime * f_local) % 2
 
-            # 3. PFB halo: only the tiny complex tail is materialized
-            hlen = self.pfb.hist_len
-            tail_c = jax.lax.complex(band_r[-hlen:], band_i[-hlen:])
-            phist, p_carry = self._hist_pfb(state.pfb_hist, tail_c, hlen, ax)
-            f_local = band_r.shape[-1] // C.NUM_CHANNELS
-            parity = (state.frame_parity + d * f_local) % 2
-            new_parity = (state.frame_parity + ntime * f_local) % 2
+        # 4. per-sub-chunk RSSI (local K_local sub-chunks)
+        rssi_local = rssi_op.subchunk_rssi(chan, K_local)
 
-            # 5a. discriminator previous-sample halo: each shard computes
-            # its own last PFB frame (one 416-tap dot) and ppermutes it
-            ext_r = jnp.concatenate([jnp.real(phist).astype(jnp.float32),
-                                     band_r])[-(hlen + C.NUM_CHANNELS):]
-            ext_i = jnp.concatenate([jnp.imag(phist).astype(jnp.float32),
-                                     band_i])[-(hlen + C.NUM_CHANNELS):]
-            lsign = (1.0 - 2.0 * ((parity + f_local - 1) % 2)
-                     ).astype(jnp.float32)
-            cand = last_frame_output(ext_r, ext_i, lsign)    # [16] c64
-            fm_prev, fm_carry = halo.shard_scalar_prev(
-                state.demod_prev, cand[:, None], ax)
+        # 5. FM demod with 1-sample halo per channel
+        fm_prev, fm_carry = halo.shard_scalar_prev(state.demod_prev,
+                                                   chan, ax)
+        _, demod = fm.fm_demod(fm_prev, chan)
 
-            # 3-5. fused PFB + |y| + discriminator kernel
-            demod, mag, _, _, _ = self.pallas_pfb.call_planes(
-                band_r, band_i, phist, parity, fm_prev)
-            blocks = mag.reshape(C.NUM_CHANNELS, K_local, ns)
-            rssi_local = jnp.moveaxis(
-                20.0 * jnp.log10(jnp.maximum(jnp.mean(blocks, axis=-1),
-                                             1e-30)), 0, 1)
+        # 6. audio filters with halos
+        hp_hist, hp_carry = halo.shard_hist(state.hp_hist, demod,
+                                            C.HP_AUDIO_FILT_TAPS - 1, ax)
+        _, hp_out = fir.fir_apply(hp_hist, demod, self.hp_taps)
+        dl_hist, dl_carry = halo.shard_hist(state.delay_hist, demod,
+                                            C.CTCSS_DELAY, ax)
+        _, delayed = fir.delay_apply(dl_hist, demod)
+        lp_branch = delayed - hp_out
+        (lpdc_x, lpdc_y), lp_dcb = halo.shard_dc_blocker(
+            (state.lp_dc_x, state.lp_dc_y), lp_branch,
+            C.DC_BLOCK_ALPHA, ax)
 
-            # 6. fused audio bank with a raw-demod history halo
-            ah_local, ah_carry = halo.shard_hist(
-                state.audio_hist, demod, state.audio_hist.shape[-1], ax)
-            _, audio_all, lp_branch = self.pallas_audio.apply(
-                ah_local, demod, params.audio_gain)
-            (lpdc_x, lpdc_y), lp_dcb = halo.shard_dc_blocker(
-                (state.lp_dc_x, state.lp_dc_y), lp_branch,
-                C.DC_BLOCK_ALPHA, ax)
-            hp_carry = state.hp_hist
-            dl_carry = state.delay_hist
-            de_carry = state.deemph_hist
-            al_carry = state.audio_lp_hist
+        audio_all = hp_out * params.audio_gain
+        de_hist, de_carry = halo.shard_hist(state.deemph_hist, audio_all,
+                                            self.deemph_hist_len, ax)
+        _, audio_all = fir.fir_apply(de_hist, audio_all, self.deemph_taps)
+        if self.lowpass:
+            al_in = audio_all
+            al_hist, al_carry = halo.shard_hist(
+                state.audio_lp_hist, al_in, C.LP_AUDIO_FILT_TAPS - 1, ax)
+            _, audio_all = fir.fir_apply(al_hist, al_in, self.lp_taps)
         else:
-            # 2. resampler with input-history halo
-            rhist, r_carry = self._hist_resamp(state.resamp_hist, x,
-                                               self.resampler.hist_len, ax)
-            _, band = self.resampler.apply(rhist, x)
-
-            # 3. PFB with band-history halo; frame parity offset per shard
-            phist, p_carry = self._hist_pfb(state.pfb_hist, band,
-                                            self.pfb.hist_len, ax)
-            f_local = band.shape[-1] // C.NUM_CHANNELS
-            parity = (state.frame_parity + d * f_local) % 2
-            (_, _), chan = self.pfb.apply((phist, parity), band)
-            new_parity = (state.frame_parity + ntime * f_local) % 2
-
-            # 4. per-sub-chunk RSSI (local K_local sub-chunks)
-            rssi_local = rssi_op.subchunk_rssi(chan, K_local)
-
-            # 5. FM demod with 1-sample halo per channel
-            fm_prev, fm_carry = halo.shard_scalar_prev(state.demod_prev,
-                                                       chan, ax)
-            _, demod = fm.fm_demod(fm_prev, chan)
-
-            # 6. audio filters with halos
-            hp_hist, hp_carry = halo.shard_hist(state.hp_hist, demod,
-                                                C.HP_AUDIO_FILT_TAPS - 1, ax)
-            _, hp_out = fir.fir_apply(hp_hist, demod, self.hp_taps)
-            dl_hist, dl_carry = halo.shard_hist(state.delay_hist, demod,
-                                                C.CTCSS_DELAY, ax)
-            _, delayed = fir.delay_apply(dl_hist, demod)
-            lp_branch = delayed - hp_out
-            (lpdc_x, lpdc_y), lp_dcb = halo.shard_dc_blocker(
-                (state.lp_dc_x, state.lp_dc_y), lp_branch,
-                C.DC_BLOCK_ALPHA, ax)
-
-            audio_all = hp_out * params.audio_gain
-            de_hist, de_carry = halo.shard_hist(state.deemph_hist, audio_all,
-                                                self.deemph_hist_len, ax)
-            _, audio_all = fir.fir_apply(de_hist, audio_all, self.deemph_taps)
-            if self.lowpass:
-                al_in = audio_all
-                al_hist, al_carry = halo.shard_hist(
-                    state.audio_lp_hist, al_in, C.LP_AUDIO_FILT_TAPS - 1, ax)
-                _, audio_all = fir.fir_apply(al_hist, al_in, self.lp_taps)
-            else:
-                al_carry = state.audio_lp_hist
-            ah_carry = state.audio_hist
+            al_carry = state.audio_lp_hist
 
         # 6b. waterfall rows on the local band shard (history halo: the
         # sliding window reaches w//2 samples into the previous shard)
@@ -779,7 +266,7 @@ class ShardedScannerChain:
             frame_parity=new_parity, demod_prev=fm_carry,
             hp_hist=hp_carry, delay_hist=dl_carry,
             lp_dc_x=lpdc_x, lp_dc_y=lpdc_y, deemph_hist=de_carry,
-            audio_lp_hist=al_carry, audio_hist=ah_carry,
+            audio_lp_hist=al_carry,
             fsm_state=carry_out.fsm_state, active_chan=carry_out.active_chan,
             rssi=carry_out.rssi, ct_count=carry_out.ct_count,
             ct_carry=carry_out.ct_carry, ct_detected=carry_out.ct_detected,

@@ -1,31 +1,15 @@
 """Time-sharded single-channel NBFM monitor (streams x time mesh).
 
-Distributes the fixed-channel chain (scanner/single.py — the reference's
-config-1 monitor, BASELINE.json) the same way parallel/dsd_sharded.py
-distributes dsd_in: FIR-history halos + exact affine IIR carries
-(parallel/halo.py) over the TIME axis, vmapped over STREAM.  With this,
-EVERY signal chain in the framework (scanner, dsd_in, single) has a
-sharded == unsharded test-gated distributed variant.
+Distributes the fixed-channel chain (scanner/single.py) the same way
+parallel/dsd_sharded.py distributes dsd_in: FIR-history halos + exact
+affine IIR carries (parallel/halo.py) over the TIME axis, vmapped over
+STREAM.  With this, EVERY signal chain in the framework (scanner, dsd_in,
+single) has a sharded == unsharded test-gated distributed variant.
 
 The one piece the other chains don't have is the MIXER.  The channel
-offset is a multiple of fs/32, so the phase ramp has period 32; and the
-mono path's group geometry (K_local % 8 == 0) makes t_band_local a
-multiple of 32 AND the per-shard decimated-sample count even, so every
-shard shares the SAME global phase rotation rot = e^{-j w n0} and the
-kernel's (-1)^f mixer-fold parity (kernels/chan_tail.py) survives the
-shard boundary unchanged.  On the XLA path each shard's phase base is
-``(n0 + axis_index * t_band_local) % 32`` — closed-form, no cross-shard
-state beyond the replicated carried ``n0``.
-
-``use_pallas`` (K_local % 8 == 0) runs the MONO engine per shard — the
-whole chain in one kernel (kernels/chan_tail.py::PallasMonoChain) —
-with the exact-state pre-pass of the sharded dsd/DUO chains
-(parallel/fused_halo.py): a read-only reduction recovers each shard's
-true incoming DC state, and every tail halo (front history, TRUE-space
-band rows, TRUE-space discriminator sample, raw-demod history) is
-rebuilt from a short corrected DC tail pushed through the XLA
-resampler + mixer + channel filter.  The unmodified kernel then runs
-with exact state — no post-correction.
+offset is a multiple of fs/32, so the phase ramp has period 32, and each
+shard's phase base is ``(n0 + axis_index * t_band_local) % 32`` —
+closed-form, no cross-shard state beyond the replicated carried ``n0``.
 """
 
 from __future__ import annotations
@@ -39,28 +23,24 @@ from sdr_pmr446_tpu import config as C
 from sdr_pmr446_tpu.taps import design as D
 from sdr_pmr446_tpu.ops import fir, fm
 from sdr_pmr446_tpu.ops.resample import PolyResampler
-from sdr_pmr446_tpu.scanner.single import (SingleState, PallasSingleState,
-                                           channel_filter_taps)
+from sdr_pmr446_tpu.ops import decode as decode_op
+from sdr_pmr446_tpu.scanner.single import SingleState, channel_filter_taps
 from sdr_pmr446_tpu.parallel import halo
 from sdr_pmr446_tpu.parallel.scanner_sharded import STREAM_AXIS, TIME_AXIS
 
 
 class ShardedSingleChain:
     """Single-channel monitor over [n_streams, input_len] blocks on a
-    (stream, time) mesh; step -> (state, audio [n_streams, T*25/2048])."""
-
-    #: mono-path DC tail: 384-sample front history + the input span that
-    #: yields chf.hist_len + (17*25+1)*16 = 7653 TRUE band samples for
-    #: the band/sig/demod halo rebuild (39296 * 25/128 = 7675 >= 7653)
-    TAIL = 384 + 39296
+    (stream, time) mesh; step -> (state, audio [n_streams, T*25/2048]).
+    Wire formats other than "cf32" are decoded per time shard (words hold
+    whole samples)."""
 
     def __init__(self, mesh: Mesh, channel: int,
                  subchunks_per_step: int = 10,
                  audio_gain: float = C.SDR_DEFAULT_AUDIO_GAIN,
-                 use_pallas: bool = False, pallas_interpret: bool = False,
                  input_format: str = "cf32"):
-        from sdr_pmr446_tpu.ops import decode as decode_op
-        assert 1 <= channel <= C.NUM_CHANNELS
+        if not 1 <= channel <= C.NUM_CHANNELS:
+            raise ValueError(f"channel must be 1..{C.NUM_CHANNELS}")
         self.mesh = mesh
         self.channel = channel
         self.audio_gain = audio_gain
@@ -71,32 +51,10 @@ class ShardedSingleChain:
                 f"subchunks_per_step={subchunks_per_step} must divide "
                 f"evenly over the {self.n_time}-way time mesh")
         assert (self.input_len // self.n_time) % C.INPUT_GRANULE == 0
-        k_local = subchunks_per_step // self.n_time
-        if use_pallas and k_local % 8 != 0:
-            # match the unsharded chain's ValueError rather than a
-            # silent XLA fallback a caller could mistake for the engine
-            raise ValueError(
-                "the sharded mono engine needs subchunks_per_step / "
-                f"n_time % 8 == 0 (got K_local={k_local})")
-        self.mono = bool(use_pallas)
-        self._t_local = self.input_len // self.n_time
         if input_format != "cf32" and \
                 input_format not in decode_op.PACKED_FORMATS:
             raise ValueError(f"unsupported input_format: {input_format!r}")
-        if input_format != "cf32" and not self.mono:
-            # the XLA halo path has no wire-decode equality gate; keep
-            # wire formats on the tested mono pre-pass (matches the
-            # unsharded SingleChannelChain's restriction)
-            raise ValueError("wire input formats need the mono engine "
-                             "(use_pallas=True)")
         self.input_format = input_format
-        self._pallas_interpret = pallas_interpret
-        if self.mono:
-            from sdr_pmr446_tpu.kernels.chan_tail import PallasMonoChain
-            self.mono_k = PallasMonoChain("single", input_format,
-                                          channel=channel,
-                                          audio_gain=audio_gain,
-                                          interpret=pallas_interpret)
         self.res = PolyResampler(D.resampler_taps(), C.RESAMP_L, C.RESAMP_M)
         self.chf = PolyResampler(np.asarray(channel_filter_taps()), 1,
                                  C.NUM_CHANNELS)
@@ -105,7 +63,6 @@ class ShardedSingleChain:
         f_off = (channel - 1) * C.CHANNEL_WIDTH_HZ - 93_750.0
         self.omega = 2.0 * np.pi * f_off / C.SDR_RESAMPLERATE
         self.phase_period = 32
-        self._t_band_local = self._t_local * 25 // 128
         self.output_len = self.input_len * 25 // 2048
 
         state_struct = self._init_one()
@@ -129,9 +86,6 @@ class ShardedSingleChain:
             * np.arange(self.phase_period)).astype(np.complex64))
 
     def _init_one(self):
-        if self.mono:
-            return PallasSingleState(*self.mono_k.init_state(),
-                                     jnp.zeros((), jnp.int32))
         return SingleState(
             dc_x=jnp.zeros((), jnp.complex64),
             dc_y=jnp.zeros((), jnp.complex64),
@@ -157,11 +111,12 @@ class ShardedSingleChain:
         return self._multi_step(state, iqs)
 
     def _step_shard(self, state, iq: jax.Array):
-        fn = self._step_one_mono if self.mono else self._step_one
-        return jax.vmap(fn)(state, iq)
+        return jax.vmap(self._step_one)(state, iq)
 
     def _step_one(self, state: SingleState, iq: jax.Array):
         ax = TIME_AXIS
+        if self.input_format != "cf32":
+            iq = decode_op.decode_complex(iq, self.input_format)
         (dc_x, dc_y), x = halo.shard_dc_blocker(
             (state.dc_x, state.dc_y), iq, C.DC_BLOCK_ALPHA, ax)
         h1, c1 = halo.shard_hist(state.res_hist, x, self.res.hist_len, ax)
@@ -189,72 +144,4 @@ class ShardedSingleChain:
         _, audio = fir.fir_apply(h4, audio, jnp.asarray(self.deemph_taps))
         n0 = (state.n0 + self.n_time * t_band) % self.phase_period
         new_state = SingleState(dc_x, dc_y, c1, c2, fm_carry, c3, c4, n0)
-        return new_state, audio
-
-    def _step_one_mono(self, state: PallasSingleState, iq: jax.Array):
-        from sdr_pmr446_tpu.parallel import fused_halo as FH
-        from sdr_pmr446_tpu.parallel.fused_halo import _zero_summary_consts
-        ax = TIME_AXIS
-        t_local = self._t_local
-        tail_len = self.TAIL
-        fmt = self.input_format
-        if fmt == "cf32":
-            xr = jnp.real(iq).astype(jnp.float32)
-            xi = jnp.imag(iq).astype(jnp.float32)
-            y00, y_pre, x_pre, xlast, tail_x = FH.front_zero_summary(
-                xr, xi, tail_len)
-        else:
-            if fmt == "cf32w":
-                iq = iq.reshape(t_local // 128, 256)
-            else:
-                iq = iq.reshape(-1, 128)
-            y00, y_pre, x_pre, xlast, tail_x = FH.front_zero_summary_wire(
-                iq, fmt, t_local, tail_len,
-                interpret=self._pallas_interpret)
-        dcx_in, dcx_carry = halo.shard_scalar_prev(state.dc_x,
-                                                   xlast[None], ax)
-        zc = _zero_summary_consts(t_local, tail_len)
-        y_in, delta, dcy_carry, _ = FH.compose_dc_chain(
-            y00, xlast, state.dc_y, state.dc_x, zc["p_t1"], FH._G, ax)
-        dc_tail = FH.dc_tail_exact(tail_x, y_pre, x_pre, delta, t_local)
-
-        # halos rebuilt from the corrected tail (all pre-kernel).  The
-        # band tail is in TRUE (unmixed) space — exactly the space the
-        # kernel's band_hist carries (the mixer is folded into its taps).
-        fh_true = dc_tail[-self.mono_k.front_hist_len:]
-        fh_in, fh_carry = FH.shard_pass_right(state.front_hist, fh_true, ax)
-        r1 = self.res
-        _, band_tail = r1.apply(dc_tail[384 - r1.hist_len:384],
-                                dc_tail[384:])          # [7675] c64 TRUE
-        bh_true = band_tail[-self.mono_k.tail.hb * 400:]
-        bh_in, bh_carry = FH.shard_pass_right(state.band_hist, bh_true, ax)
-
-        # sig/demod halos need the MIXED tail.  Every shard ends at a
-        # global band index == n0 (mod 32) (t_band_local % 32 == 0 for
-        # K_local % 8 == 0), so sample j of the last B carries phase
-        # index (n0 - B + j) mod 32 — the same for all shards.
-        chf = self.chf
-        n_sig = self.mono_k.tail.dh * 25 + 1                  # 426
-        b_need = chf.hist_len + n_sig * 16                    # 7653
-        tab = self._phase_tab()
-        j = jnp.arange(b_need, dtype=jnp.int32)
-        idx = (j + state.n0 - b_need) % self.phase_period
-        mixed_tail = band_tail[-b_need:] * tab[idx]
-        _, sig_tail = chf.apply(mixed_tail[:chf.hist_len],
-                                mixed_tail[chf.hist_len:])    # [426] c64
-        sp_true = sig_tail[-1]                                # TRUE space
-        sp_in, sp_carry = FH.shard_pass_right(state.sig_prev, sp_true, ax)
-        _, dem_tail = fm.fm_demod(sig_tail[0], sig_tail[1:])  # [425] f32
-        dh_in, dh_carry = FH.shard_pass_right(state.demod_hist, dem_tail,
-                                              ax)
-
-        # the UNMODIFIED mono kernel with exact incoming state; rot is
-        # the SAME for every shard (see above)
-        rot = tab[state.n0 % self.phase_period]
-        (_, _, _, _, _, _, audio) = self.mono_k.apply(
-            dcx_in, y_in, fh_in, bh_in, sp_in, dh_in, iq, rot=rot)
-        t_band = self._t_band_local
-        n0 = (state.n0 + self.n_time * t_band) % self.phase_period
-        new_state = PallasSingleState(dcx_carry, dcy_carry, fh_carry,
-                                      bh_carry, sp_carry, dh_carry, n0)
         return new_state, audio

@@ -26,18 +26,6 @@ from sdr_pmr446_tpu.scanner.chain import (ScannerChain, StepOutputs,
 log = logging.getLogger("sdr_pmr446")
 
 
-def resolve_engine(engine: str) -> str:
-    """'auto' -> the fused Pallas engine on TPU backends, XLA elsewhere
-    (Mosaic kernels only lower on real TPUs; the interpreter is a
-    validation tool, far too slow to be a default)."""
-    if engine in (None, "auto"):
-        import jax
-        return "pallas" if jax.default_backend() == "tpu" else "xla"
-    if engine not in ("xla", "pallas", "pallas-interpret"):
-        raise ValueError(f"unknown engine {engine!r}")
-    return engine
-
-
 def _device_prefetch(blocks: Iterable[np.ndarray], dtype, depth: int):
     """Stage input blocks on device ``depth`` ahead of consumption.
 
@@ -80,16 +68,8 @@ class ScannerDriver:
                  input_format: str = "cf32",
                  steps_per_dispatch: int = 1,
                  prefetch_depth: int = 2,
-                 checkpoint_backend: str = "npz",
-                 engine: str = "auto"):
+                 checkpoint_backend: str = "npz"):
         self.args = args or C.ScannerArgs()
-        # engine: "pallas" = fused TPU kernels (the benchmarked fast
-        # path, the default on TPU backends), "xla" = the op chain (the
-        # default elsewhere), "pallas-interpret" = kernels under the
-        # interpreter (validation).  With input_format "cf32w" + pallas
-        # the app runs bench.py's exact recorded configuration.
-        engine = resolve_engine(engine)
-        self.engine = engine
         # input_format "cs16"/"cu8": run() consumes blocks of RAW wire
         # bytes packed as f32 words (ops/decode.py) and the chain decodes
         # on device — 2-4x less host->device traffic than cf32; "cf32w"
@@ -97,9 +77,7 @@ class ScannerDriver:
         self.chain = ScannerChain(
             C.BlockConfig(subchunks_per_step),
             lowpass=self.args.lowpass, fir_deemph=self.args.fir_deemph,
-            waterfall=self.args.waterfall, input_format=input_format,
-            use_pallas=engine.startswith("pallas"),
-            pallas_interpret=engine == "pallas-interpret")
+            waterfall=self.args.waterfall, input_format=input_format)
         self.params = make_runtime_params(self.args)
         self.state = self.chain.init_state()
         self.block_index = 0
@@ -155,9 +133,9 @@ class ScannerDriver:
                 if self.checkpoint_backend == "orbax"
                 else state_io.load_state)
         self.block_index, loaded = load(path or self.checkpoint_path)
-        # configuration changes move history lengths (e.g. the wide-row
-        # fused front end's 512 vs 384 resampler samples): reconcile
-        # against this chain's state shapes instead of failing on restore
+        # configuration changes move history lengths (e.g. the longer
+        # de-emphasis history under fir_deemph): reconcile against this
+        # chain's state shapes instead of failing on restore
         self.state = state_io.adapt_state_histories(loaded,
                                                     self.chain.init_state())
         self.subchunk = self.block_index * self.chain.block.subchunks_per_step
@@ -202,16 +180,12 @@ class ScannerDriver:
         self._resume_skip = 0
         feed_dtype = (jnp.complex64 if self.chain.input_format == "cf32"
                       else jnp.float32)
-        # feed the kernel's native 2-D row layout (a free numpy reshape):
-        # a flat 1-D device argument costs a whole-block XLA relayout pass
-        # before the fused kernel can read it (chain.step_arg_shape)
-        feed_shape = self.chain.step_arg_shape
         S = self.steps_per_dispatch
 
         def _after_skip(it):
             for i, b in enumerate(it):
                 if i >= skip:
-                    yield b.reshape(feed_shape)
+                    yield b
 
         staged = _device_prefetch(_after_skip(blocks), feed_dtype,
                                   self.prefetch_depth)

@@ -2,14 +2,14 @@
 
 Every chain in the framework is a pure block step
 ``(state, x, *args) -> (state', out)`` (CLAUDE.md conventions).  At
-deployment block sizes the per-dispatch host/runtime cost is the dominant
-per-step overhead (RESULTS.md: both engines sit at the dispatch floor at
-K=40), so streaming drivers fuse S consecutive blocks into one dispatch.
+small block sizes the per-dispatch host/runtime cost can dominate a
+step, so streaming drivers may fuse S consecutive blocks into one
+dispatch.
 The scan carries the state pytree, keeping the FSM and every filter history
 sequential across blocks — every integer/boolean decision is exactly equal
 to S single steps, floats to f32 rounding (the scan body compiles with
 different fusion/FMA choices than the standalone step, ~1 ulp;
-tests/test_multistep.py).  This is the TPU-idiomatic answer to the
+tests/test_multistep.py).  This is the device-side answer to the
 reference's per-chunk loop overhead (src/sdr_pmr446.c:788-790): the
 compiler pipelines the S iterations on device instead of the host paying
 per-block round trips.

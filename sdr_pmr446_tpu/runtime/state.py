@@ -34,9 +34,6 @@ class ScannerState(NamedTuple):
     lp_dc_y: jax.Array         # f32 [16]
     deemph_hist: jax.Array     # f32 [16, deemph_taps-1]
     audio_lp_hist: jax.Array   # f32 [16, 102]
-    audio_hist: jax.Array      # f32 [16, >=512] raw-demod history for the
-    #                            fused Pallas audio bank (kernels/audio_bank;
-    #                            the four FIR hists above stay zero there)
     # control (squelch FSM, src/sdr_pmr446.c:827-874)
     fsm_state: jax.Array       # i32 []     0=scanning 1=tuned
     active_chan: jax.Array     # i32 []     -1..15
@@ -56,8 +53,7 @@ class ScannerState(NamedTuple):
 
 def init_scanner_state(resamp_hist_len: int, pfb_hist_len: int,
                        deemph_hist_len: int,
-                       waterfall: int = 0,
-                       audio_hist_len: int = 4 * 128) -> ScannerState:
+                       waterfall: int = 0) -> ScannerState:
     nch = C.NUM_CHANNELS
     return ScannerState(
         dc_x=jnp.zeros((), jnp.complex64),
@@ -72,7 +68,6 @@ def init_scanner_state(resamp_hist_len: int, pfb_hist_len: int,
         lp_dc_y=jnp.zeros((nch,), jnp.float32),
         deemph_hist=jnp.zeros((nch, deemph_hist_len), jnp.float32),
         audio_lp_hist=jnp.zeros((nch, C.LP_AUDIO_FILT_TAPS - 1), jnp.float32),
-        audio_hist=jnp.zeros((nch, audio_hist_len), jnp.float32),
         fsm_state=jnp.zeros((), jnp.int32),
         active_chan=jnp.full((), -1, jnp.int32),
         rssi=jnp.zeros((), jnp.float32),
@@ -90,11 +85,10 @@ def init_scanner_state(resamp_hist_len: int, pfb_hist_len: int,
 def adapt_state_histories(state, reference):
     """Reconcile checkpoint history lengths with the target chain's.
 
-    Chain configuration changes the carried history lengths (the fused
-    wide-row front end keeps 512 resampler samples where the narrow one
-    keeps 384; audio_hist grows to 640 for fir_deemph+lowpass), so a
-    checkpoint saved under one configuration would fail to restore under
-    another with a bare shape mismatch.  History semantics make the
+    Chain configuration changes the carried history lengths (the
+    de-emphasis history is longer under fir_deemph), so a checkpoint saved
+    under one configuration would fail to restore under another with a
+    bare shape mismatch.  History semantics make the
     migration well-defined: newest samples live at the END of every
     ``*_hist`` field, so a longer target is LEFT-extended with zeros
     (the extra look-behind decays out within one filter length) and a
@@ -132,7 +126,9 @@ def save_state(path: str, block_index: int, state: ScannerState) -> None:
     from sdr_pmr446_tpu.runtime.transfer import fetch
     host = fetch(list(state))
     arrs = {f"s{i}": v for i, v in enumerate(host)}
-    np.savez(path, block_index=np.int64(block_index), **arrs)
+    # through a file object: np.savez would append ".npz" to a bare path
+    with open(path, "wb") as f:
+        np.savez(f, block_index=np.int64(block_index), **arrs)
 
 
 def load_state(path: str) -> tuple[int, ScannerState]:

@@ -3,7 +3,7 @@
 The production data-loader shape of the framework: a reader thread converts
 raw IQ (via the native engine when built — sdrio's converters hold no GIL in
 the hot loop) into the SPSC ring while the main thread assembles fixed-size
-blocks and drives the jitted step.  This is the TPU-era equivalent of the
+blocks and drives the jitted step.  This is the block-streaming equivalent of the
 reference's SoapySDR-read -> cbuffercf -> process loop
 (src/sdr_pmr446.c:788-816), with the ring absorbing reader/compute jitter
 exactly as the reference's ring absorbs resampler-yield jitter.

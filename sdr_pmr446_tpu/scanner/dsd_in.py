@@ -1,6 +1,6 @@
 """dsd_in: wideband-FM front-end for external digital-voice decoders.
 
-TPU-native re-design of the reference's second app (src/dsd_in.c:95-180):
+A re-design of the reference's second app (src/dsd_in.c:95-180):
 
     IQ @1.024 Msps -> DC block -> resample to 12.5 kHz (60 dB)
     -> freqdem(0.5) -> real resample UP to 48 kHz -> s16le
@@ -8,7 +8,7 @@ TPU-native re-design of the reference's second app (src/dsd_in.c:95-180):
 The reference's single msresamp 12.5k/1.024M (ratio 1/81.92) is realized as
 the spec-equivalent two-stage polyphase cascade (liquid's msresamp is itself
 multi-stage internally): 25/128 to 200 kHz, then a 16x decimating lowpass —
-both mapped to MXU strided convolutions.  The upsampler is the same polyphase
+both written as strided convolutions.  The upsampler is the same polyphase
 machinery at 96/25.
 
 Note: the reference has a stack-buffer overflow here (buf_out_s sized
@@ -62,36 +62,15 @@ class DsdState(NamedTuple):
     up_hist: jax.Array
 
 
-class PallasDsdState(NamedTuple):
-    """Fused-engine state: the front end carries 384 DC-blocked samples
-    (kernels/front_end.py), the tail two band group rows + the last
-    decimated sample + 50 demod samples (kernels/chan_tail.py)."""
-    dc_x: jax.Array          # c64 []
-    dc_y: jax.Array          # c64 []
-    front_hist: jax.Array    # c64 [384 | 512]
-    band_hist: jax.Array     # c64 [2*400]
-    sig_prev: jax.Array      # c64 []
-    demod_hist: jax.Array    # f32 [2*25]
-
-
 class DsdOutputs(NamedTuple):
     pcm: jax.Array        # i16 [T_in * 3 // 64]  48 kHz s16le audio
 
 
 class DsdInChain:
-    """Jittable block step: (state, iq[T]) -> (state', s16 pcm [T*3/64]).
-
-    ``use_pallas`` (needs subchunks_per_step % 8 == 0 for the group-band
-    geometry) runs the FUSED engine: the scanner's front-end kernel
-    (in-kernel DC blocker + wire decode + 25/128 resampler, GROUP-major
-    band) feeding one tail kernel (16x decimator + discriminator + 96/25
-    upsampler + s16 scale/clip, kernels/chan_tail.py) — two kernel
-    launches for the whole chain, band planes the only intermediate HBM.
-    """
+    """Jittable block step: (state, iq[T]) -> (state', s16 pcm [T*3/64])."""
 
     def __init__(self, subchunks_per_step: int = 10,
-                 input_format: str = "cf32", use_pallas: bool = False,
-                 pallas_interpret: bool = False, mono: bool = True):
+                 input_format: str = "cf32"):
         self.input_len = subchunks_per_step * C.SUBCHUNK_IN
         assert self.input_len % C.INPUT_GRANULE == 0
         # "cs16"/"cu8": step takes raw wire bytes packed as f32 words and
@@ -100,26 +79,6 @@ class DsdInChain:
         if input_format != "cf32" and \
                 input_format not in decode_op.PACKED_FORMATS:
             raise ValueError(f"unsupported input_format: {input_format!r}")
-        if use_pallas and subchunks_per_step % 8 != 0:
-            raise ValueError("the fused dsd engine needs "
-                             "subchunks_per_step % 8 == 0 (group band)")
-        self.use_pallas = use_pallas
-        # mono (default): the WHOLE chain as ONE kernel launch — the band
-        # never leaves VMEM, HBM traffic = wire read + PCM write (the
-        # input-read speed of light); mono=False keeps the two-kernel
-        # engine for A/B
-        self.mono = mono and use_pallas
-        if self.mono:
-            from sdr_pmr446_tpu.kernels.chan_tail import PallasMonoChain
-            self.mono_k = PallasMonoChain("dsd", input_format,
-                                          interpret=pallas_interpret)
-        elif use_pallas:
-            from sdr_pmr446_tpu.kernels.front_end import PallasFrontEnd
-            from sdr_pmr446_tpu.kernels.chan_tail import PallasChanTail
-            self.front = PallasFrontEnd(
-                interpret=pallas_interpret,
-                wide=input_format in ("cu8", "cs8"))
-            self.tail = PallasChanTail("dsd", interpret=pallas_interpret)
         self.res1 = PolyResampler(D.resampler_taps(), C.RESAMP_L, C.RESAMP_M)
         self.res2 = PolyResampler(np.asarray(stage2_taps()), 1, 16)
         self.up = PolyResampler(np.asarray(up_taps()), 96, 25)
@@ -134,23 +93,7 @@ class DsdInChain:
             return self.input_len
         return decode_op.packed_len(self.input_len, self.input_format)
 
-    @property
-    def step_arg_shape(self) -> tuple:
-        """Preferred input shape: the fused wire formats take the
-        kernels' 2-D row layout (scanner/chain.py rationale)."""
-        if self.use_pallas and self.input_format != "cf32":
-            if self.input_format == "cf32w":
-                return (self.input_len // 128, 256)
-            return (self.step_arg_len // 128, 128)
-        return (self.step_arg_len,)
-
     def init_state(self):
-        if self.mono:
-            return PallasDsdState(*self.mono_k.init_state())
-        if self.use_pallas:
-            dc_x, dc_y, fh = self.front.init_state()
-            bh, sp, dh = self.tail.init_state()
-            return PallasDsdState(dc_x, dc_y, fh, bh, sp, dh)
         return DsdState(
             dc_x=jnp.zeros((), jnp.complex64),
             dc_y=jnp.zeros((), jnp.complex64),
@@ -169,24 +112,6 @@ class DsdInChain:
         return self._multi_step(state, iqs)
 
     def _step_impl(self, state, iq: jax.Array):
-        if self.use_pallas and iq.ndim == 1 and \
-                len(self.step_arg_shape) == 2:
-            iq = iq.reshape(self.step_arg_shape)
-        if self.mono:
-            *new_state, out48 = self.mono_k.apply(*state, iq)
-            return (PallasDsdState(*new_state),
-                    DsdOutputs(pcm=out48.astype(jnp.int16)))
-        if self.use_pallas:
-            from sdr_pmr446_tpu.kernels.chan_tail import front_dispatch
-            dc_x, dc_y, fh, bwr, bwi = front_dispatch(
-                self.front, self.input_format, state.dc_x, state.dc_y,
-                state.front_hist, iq)
-            bh, sp, dh, out48 = self.tail.apply(
-                state.band_hist, state.sig_prev, state.demod_hist,
-                bwr, bwi)
-            pcm = out48.astype(jnp.int16)      # scaled+clipped in-kernel
-            return (PallasDsdState(dc_x, dc_y, fh, bh, sp, dh),
-                    DsdOutputs(pcm=pcm))
         if self.input_format != "cf32":
             iq = decode_op.decode_complex(iq, self.input_format)
         (dc_x, dc_y), x = iir.dc_blocker_apply(

@@ -208,7 +208,7 @@ def fsm_ctcss_scan_v2(carry_in: FsmCarry, rssi_k: jax.Array, lp: jax.Array,
       A. scalar lax.scan over K: FSM transitions + per-sub-chunk detector
          counts/boundaries (a handful of scalars per step);
       B. batched tone sums for ALL sub-chunks: two [K, ns] x [ns, 38]
-         complex matmuls (MXU) with masks/phases from phase A;
+         complex matmuls with masks/phases from phase A;
       C. tiny lax.scan over K carrying only the [38] partial sums and the
          scalar detection state.
 
@@ -257,7 +257,7 @@ def fsm_ctcss_scan_v2(carry_in: FsmCarry, rssi_k: jax.Array, lp: jax.Array,
     (act2, rel, tune, detune, do_change, prev_chan, act1,
      cnt_r, b_arr, has_b, is_active) = a
 
-    # ---- phase B: batched tone sums (MXU) ----
+    # ---- phase B: batched tone sums (matmuls) ----
     sel = jnp.clip(act2, 0, nch - 1)
     lp_sel = jnp.take_along_axis(lp, sel[:, None, None], axis=1)[:, 0, :]
     pre = (idx_i[None, :] <= b_arr[:, None]).astype(jnp.float32)  # [K, ns]
@@ -265,9 +265,9 @@ def fsm_ctcss_scan_v2(carry_in: FsmCarry, rssi_k: jax.Array, lp: jax.Array,
     xs = lp_sel * (1.0 - pre)
     e0t = e0.T                                            # [ns, 38]
     u = u_table.T[cnt_r]                                  # [K, 38]
-    # precision=HIGHEST: on TPU the default matmul precision multiplies in
-    # bf16, which could flip borderline CTCSS detect/argmax decisions vs the
-    # v1 scan and the oracle (every other MXU op in the repo does the same)
+    # precision=HIGHEST: a lower default precision (TF32 on GPUs) could
+    # flip borderline CTCSS detect/argmax decisions vs the v1 scan and the
+    # oracle (every value-bearing dot and conv in the repo pins it)
     hi = jax.lax.Precision.HIGHEST
     s_pre = jnp.matmul(xp.astype(jnp.complex64), e0t, precision=hi) * u
     s_suf = (jnp.matmul(xs.astype(jnp.complex64), e0t, precision=hi)
@@ -339,7 +339,7 @@ def _keep_const_scan(keep: jax.Array, val: jax.Array, init: jax.Array):
 class FsmSchedule(NamedTuple):
     """Phase-A outputs: the full FSM/detector schedule, a pure function of
     the per-sub-chunk RSSI (never of the tone data) — so anything tone-
-    related downstream (the windowed-DFT sums, even inside a Pallas
+    related downstream (the windowed-DFT sums, even inside a fused
     kernel) can be driven by these tiny [K] vectors."""
     act2: jax.Array       # i32 [K] post-step active channel (-1 = none)
     rel: jax.Array        # f32 [K]
@@ -443,7 +443,7 @@ def fsm_phase_a(carry_in: FsmCarry, rssi_k: jax.Array, mask: jax.Array,
 
 def fsm_tone_sums(sched: FsmSchedule, lp: jax.Array | None,
                   lp_cm: jax.Array | None, ns: int):
-    """Phase B: batched windowed-DFT sums (MXU) for the schedule's selected
+    """Phase B: batched windowed-DFT sums (matmuls) for the schedule's selected
     channel — (s_pre, s_suf) [K, 38] c64."""
     K = sched.act2.shape[0]
     n_win = C.CTCSS_BLOCK_SIZE
@@ -471,42 +471,6 @@ def fsm_tone_sums(sched: FsmSchedule, lp: jax.Array | None,
     s_pre = jnp.matmul(xp.astype(jnp.complex64), e0t, precision=hi) * u
     s_suf = (jnp.matmul(xs.astype(jnp.complex64), e0t, precision=hi)
              * (u * wrap[None, :]))
-    return s_pre, s_suf
-
-
-@functools.lru_cache(maxsize=None)
-def _window_corr_table(k: int, ns: int,
-                       period: int | None = None) -> np.ndarray:
-    """corr[k, t] = e^{+j w_t ns (k mod period)}: undoes the kernel DFT's
-    global phase (it sums x_p e^{-j w p}; the window wants
-    e^{-j w (p - ns k)}).  ``period`` covers TIME-SHARDED kernels, whose
-    sample index restarts at 0 every K_local sub-chunks — the gathered
-    sums then carry phase e^{-j w ns (k mod K_local)} (host float64)."""
-    w = 2.0 * np.pi * np.asarray(C.CTCSS_FREQS) / C.AUDIO_SAMPLERATE
-    idx = np.arange(k) if period is None else np.arange(k) % period
-    return np.exp(1j * np.outer(idx * float(ns), w)).astype(np.complex64)
-
-
-def raw_sums_to_ctcss(sched: FsmSchedule, raw_pre: jax.Array,
-                      raw_mem: jax.Array, ns: int,
-                      period: int | None = None):
-    """(s_pre, s_suf) [K, 38] c64 from a kernel's global-phase DFT sums
-    (PallasAudioBank.apply_dc_ctcss): raw_pre = pre-boundary sum, raw_mem
-    = whole-sub-chunk sum, both of the SELECTED channel.  Applies the
-    per-sub-chunk window phase (corr), the carried in-window phase (u)
-    and the wrap factor — all [K, 38] scalar tables; same fixed point as
-    fsm_tone_sums to f32 rounding (test-gated).  ``period`` = K_local for
-    time-sharded kernel sums (see _window_corr_table)."""
-    k = raw_pre.shape[0]
-    n_win = C.CTCSS_BLOCK_SIZE
-    corr = jnp.asarray(_window_corr_table(k, ns, period))
-    u_table = jnp.asarray(_count_phasor_table())
-    wrap = jnp.asarray(np.exp(
-        1j * 2.0 * np.pi * np.asarray(C.CTCSS_FREQS)
-        / C.AUDIO_SAMPLERATE * n_win).astype(np.complex64))
-    cu = corr * u_table.T[sched.cnt_r]
-    s_pre = raw_pre * cu
-    s_suf = (raw_mem - raw_pre) * (cu * wrap[None, :])
     return s_pre, s_suf
 
 
@@ -592,7 +556,7 @@ def fsm_ctcss_scan_v3(carry_in: FsmCarry, rssi_k: jax.Array, lp: jax.Array,
     1/16th).  Values are identical either way.
 
     v2 still runs two sequential lax.scans over K (phase A's FSM
-    transitions, phase C's [38]-carry chain) — on TPU those are 2*K serial
+    transitions, phase C's [38]-carry chain) — on an accelerator those are 2*K serial
     loop iterations and profile as the chain's single largest stage.  Every
     recurrence involved is a composition of maps from tiny monoids:
 
@@ -606,7 +570,7 @@ def fsm_ctcss_scan_v3(carry_in: FsmCarry, rssi_k: jax.Array, lp: jax.Array,
 
     so the whole control layer runs as five jax.lax.associative_scans of
     log2(K) depth plus batched tensor ops, factored here into
-    fsm_phase_a (RSSI-only schedule) -> fsm_tone_sums (MXU DFT) ->
+    fsm_phase_a (RSSI-only schedule) -> fsm_tone_sums (matmul DFT) ->
     fsm_phase_c (detection chains).  Equality with v1 is test-enforced
     (tests/test_fsm_unit.py).
     """

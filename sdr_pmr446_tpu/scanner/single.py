@@ -1,4 +1,4 @@
-"""Single-channel NBFM monitor chain (BASELINE.json config 1).
+"""Single-channel NBFM monitor chain.
 
 Fixed-tune demodulation of ONE PMR channel from the 1.024 Msps band capture:
 resample to 200 kHz, mix the chosen channel to baseband (closed-form phase
@@ -21,6 +21,7 @@ import jax.numpy as jnp
 from sdr_pmr446_tpu import config as C
 from sdr_pmr446_tpu.taps import design as D
 from sdr_pmr446_tpu.ops import fir, iir, fm
+from sdr_pmr446_tpu.ops import decode as decode_op
 from sdr_pmr446_tpu.ops.resample import PolyResampler
 
 
@@ -44,60 +45,25 @@ class SingleState(NamedTuple):
     n0: jax.Array          # global 200 kHz sample index (mod 32) for the mixer
 
 
-class PallasSingleState(NamedTuple):
-    """Fused-engine state (kernels/front_end.py + kernels/chan_tail.py)."""
-    dc_x: jax.Array          # c64 []
-    dc_y: jax.Array          # c64 []
-    front_hist: jax.Array    # c64 [384]
-    band_hist: jax.Array     # c64 [3*400]
-    sig_prev: jax.Array      # c64 []  (TRUE space; rot handled per step)
-    demod_hist: jax.Array    # f32 [17*25]
-    n0: jax.Array            # i32 []  band index mod 32 (mixer phase)
-
-
 class SingleChannelChain:
     """(state, iq[T]) -> (state, audio[T*25/2048]) for one fixed channel.
 
-    ``use_pallas`` (needs subchunks_per_step % 8 == 0) runs the FUSED
-    engine: the scanner's front-end kernel (GROUP-major band) + one tail
-    kernel with the NCO mixer FOLDED into the complex decimator taps and
-    the (CTCSS-HP x gain x de-emphasis) stack composed into one FIR
-    matrix (kernels/chan_tail.py) — two kernel launches end to end.
-    """
+    ``input_format`` other than "cf32" takes the capture's raw wire bytes
+    packed as f32 words and decodes on device (ops/decode.py), the same
+    contract as the scanner chain."""
 
     def __init__(self, channel: int, subchunks_per_step: int = 10,
                  audio_gain: float = C.SDR_DEFAULT_AUDIO_GAIN,
-                 input_format: str = "cf32", use_pallas: bool = False,
-                 pallas_interpret: bool = False, mono: bool = True):
-        assert 1 <= channel <= C.NUM_CHANNELS
+                 input_format: str = "cf32"):
+        if not 1 <= channel <= C.NUM_CHANNELS:
+            raise ValueError(f"channel must be 1..{C.NUM_CHANNELS}")
         self.channel = channel
         self.audio_gain = audio_gain
         self.input_len = subchunks_per_step * C.SUBCHUNK_IN
+        if input_format != "cf32" and \
+                input_format not in decode_op.PACKED_FORMATS:
+            raise ValueError(f"unsupported input_format: {input_format!r}")
         self.input_format = input_format
-        if use_pallas and subchunks_per_step % 8 != 0:
-            raise ValueError("the fused single-channel engine needs "
-                             "subchunks_per_step % 8 == 0 (group band)")
-        if input_format != "cf32" and not use_pallas:
-            raise ValueError("wire input formats need the fused engine")
-        self.use_pallas = use_pallas
-        # mono (default): the whole chain in ONE kernel launch — band
-        # stays in VMEM (kernels/chan_tail.py::PallasMonoChain)
-        self.mono = mono and use_pallas
-        if self.mono:
-            from sdr_pmr446_tpu.kernels.chan_tail import PallasMonoChain
-            self.mono_k = PallasMonoChain("single", input_format,
-                                          channel=channel,
-                                          audio_gain=audio_gain,
-                                          interpret=pallas_interpret)
-        elif use_pallas:
-            from sdr_pmr446_tpu.kernels.front_end import PallasFrontEnd
-            from sdr_pmr446_tpu.kernels.chan_tail import PallasChanTail
-            self.front = PallasFrontEnd(
-                interpret=pallas_interpret,
-                wide=input_format in ("cu8", "cs8"))
-            self.tail = PallasChanTail("single", channel=channel,
-                                       audio_gain=audio_gain,
-                                       interpret=pallas_interpret)
         self.res = PolyResampler(D.resampler_taps(), C.RESAMP_L, C.RESAMP_M)
         self.chf = PolyResampler(np.asarray(channel_filter_taps()), 1,
                                  C.NUM_CHANNELS)
@@ -115,24 +81,12 @@ class SingleChannelChain:
         self._multi_step = fused_steps(self._step_impl)
 
     @property
-    def step_arg_shape(self) -> tuple:
-        from sdr_pmr446_tpu.ops import decode as decode_op
-        if self.use_pallas and self.input_format != "cf32":
-            if self.input_format == "cf32w":
-                return (self.input_len // 128, 256)
-            return (decode_op.packed_len(self.input_len,
-                                         self.input_format) // 128, 128)
-        return (self.input_len,)
+    def step_arg_len(self) -> int:
+        if self.input_format == "cf32":
+            return self.input_len
+        return decode_op.packed_len(self.input_len, self.input_format)
 
     def init_state(self):
-        if self.mono:
-            return PallasSingleState(*self.mono_k.init_state(),
-                                     jnp.zeros((), jnp.int32))
-        if self.use_pallas:
-            dc_x, dc_y, fh = self.front.init_state()
-            bh, sp, dh = self.tail.init_state()
-            return PallasSingleState(dc_x, dc_y, fh, bh, sp, dh,
-                                     jnp.zeros((), jnp.int32))
         return SingleState(
             dc_x=jnp.zeros((), jnp.complex64),
             dc_y=jnp.zeros((), jnp.complex64),
@@ -153,8 +107,8 @@ class SingleChannelChain:
         return self._multi_step(state, iqs)
 
     def _step_impl(self, state, iq: jax.Array):
-        if self.use_pallas:
-            return self._step_pallas(state, iq)
+        if self.input_format != "cf32":
+            iq = decode_op.decode_complex(iq, self.input_format)
         (dc_x, dc_y), x = iir.dc_blocker_apply(
             (state.dc_x, state.dc_y), iq, C.DC_BLOCK_ALPHA)
         rh, band = self.res.apply(state.res_hist, x)
@@ -177,26 +131,3 @@ class SingleChannelChain:
         n0 = (state.n0 + t_band) % self.phase_period
         new_state = SingleState(dc_x, dc_y, rh, ch_h, fm_prev, hp_h, de_h, n0)
         return new_state, audio
-
-    def _step_pallas(self, state, iq: jax.Array):
-        if iq.ndim == 1 and len(self.step_arg_shape) == 2:
-            iq = iq.reshape(self.step_arg_shape)
-        # mixer global phase: rot = e^{-j w b0}, b0 = state.n0 (exact
-        # 32-entry table — offsets are multiples of fs/32)
-        tab = jnp.asarray(np.exp(
-            -1j * self.omega
-            * np.arange(self.phase_period)).astype(np.complex64))
-        rot = tab[state.n0]
-        t_band = self.input_len * 25 // 128
-        n0 = (state.n0 + t_band) % self.phase_period
-        if self.mono:
-            *ns_, audio = self.mono_k.apply(*state[:-1], iq, rot=rot)
-            return (PallasSingleState(*ns_, n0), audio)
-        from sdr_pmr446_tpu.kernels.chan_tail import front_dispatch
-        dc_x, dc_y, fh, bwr, bwi = front_dispatch(
-            self.front, self.input_format, state.dc_x, state.dc_y,
-            state.front_hist, iq)
-        bh, sp, dh, audio = self.tail.apply(
-            state.band_hist, state.sig_prev, state.demod_hist, bwr, bwi,
-            rot=rot)
-        return (PallasSingleState(dc_x, dc_y, fh, bh, sp, dh, n0), audio)

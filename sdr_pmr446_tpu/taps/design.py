@@ -145,7 +145,7 @@ def deemph_fir_equiv(n_taps: int = 32) -> np.ndarray:
 
     The pole is at -a1 = -0.0146..., so the impulse response decays below
     f32 epsilon within ~10 taps; a 32-tap truncation is bit-exact in f32.
-    This is the TPU-native execution form (a conv instead of a recurrence);
+    This is the block execution form (a conv instead of a recurrence);
     the reference itself sanctions a FIR de-emphasis (APP_FIR_DEEMPH,
     src/sdr_pmr446.c:42-44).
     """

@@ -11,7 +11,7 @@
  * Filter taps and the CTCSS tone table are NOT compiled in: they are read
  * from files exported by tests/golden/make_golden.py from
  * sdr_pmr446_tpu/taps/design.py — the same regenerated-from-spec tables the
- * TPU chain uses, so the differential isolates the DSP semantics, not the
+ * JAX chain uses, so the differential isolates the DSP semantics, not the
  * tap provenance.
  *
  * Build (needs liquid-dsp; zero-egress dev hosts cannot fetch it — the CI

@@ -3,10 +3,10 @@
 Exports the repo's regenerated-from-spec taps, synthesizes a deterministic
 PMR446 capture, runs the liquid-dsp harness (tests/golden/harness.c) over
 it, and packs (audio, events, capture params) into golden_scanner.npz —
-the fixture tests/test_golden.py differentials the TPU chain against.
+the fixture tests/test_golden.py differentials the JAX chain against.
 
 Needs liquid-dsp + the built harness; on the zero-egress dev hosts that
-is impossible (RESULTS.md round-5 records the attempt), so this runs in
+is impossible, so this runs in
 CI (.github/workflows/golden.yml) and the resulting npz is committed.
 
     python tests/golden/make_golden.py [--out tests/golden]

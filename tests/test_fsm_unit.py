@@ -6,7 +6,9 @@ events, and detector resets on detune.
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
+import pytest
 
 from sdr_pmr446_tpu import config as C
 from sdr_pmr446_tpu.oracle.chain import GoertzelDetector
@@ -211,3 +213,40 @@ def test_v3_scan_equals_v1():
             _assert_scan_equal(c1, o1, c3, o3,
                                f"trial{trial}blk{blk}")
             carry1, carry3 = c1, c3
+
+
+_V3_JIT = None
+
+
+@pytest.mark.parametrize("code", range(1, C.CTCSS_NUM_FREQS + 1))
+def test_every_ctcss_tone_identified_by_v3(code):
+    """Each of the 38 CTCSS tones, on a channel that changes with the
+    code, through the associative-scan FSM the chain runs
+    (fsm_ctcss_scan_v3, channel-major lp): detected and identified as
+    that code, with the per-sub-chunk trajectory of the float64 Goertzel
+    bank."""
+    global _V3_JIT
+    from sdr_pmr446_tpu.scanner.fsm import fsm_ctcss_scan_v3
+    if _V3_JIT is None:                 # one compile for all 38 cases
+        _V3_JIT = jax.jit(lambda c, r, lp: fsm_ctcss_scan_v3(
+            c, r, None, jnp.ones(16, bool), jnp.float32(18.0),
+            jnp.asarray(False), lp_cm=lp))
+    k = 6
+    ch = (code * 5) % 16
+    rng = np.random.default_rng(code)
+    t = np.arange(k * NS) / C.AUDIO_SAMPLERATE
+    sig = (0.15 * np.sin(2 * np.pi * C.CTCSS_FREQS[code - 1] * t + code)
+           + 0.01 * rng.standard_normal(k * NS)).astype(np.float32)
+    lp = np.zeros((16, k, NS), np.float32)
+    lp[ch] = sig.reshape(k, NS)
+    rssi = np.full((k, 16), -80.0, np.float32)
+    rssi[:, ch] = -10.0
+    _, outs = _V3_JIT(_carry0(), jnp.asarray(rssi), jnp.asarray(lp))
+    det_o, idx_o = _oracle_detector(sig.astype(np.float64), k)
+    np.testing.assert_array_equal(np.asarray(outs.active_chan), ch)
+    np.testing.assert_array_equal(np.asarray(outs.ct_detected), det_o)
+    np.testing.assert_array_equal(np.asarray(outs.ct_max_idx), idx_o)
+    assert bool(np.asarray(outs.ct_detected)[-1])
+    assert int(np.asarray(outs.ct_max_idx)[-1]) == code - 1
+    np.testing.assert_allclose(np.asarray(outs.ct_freq)[-1],
+                               C.CTCSS_FREQS[code - 1], rtol=1e-6)

@@ -8,7 +8,7 @@ closes that chain-of-trust: tests/golden/make_golden.py runs the
 file-driven liquid harness (tests/golden/harness.c — the reference's
 init_liquid + main-loop semantics, src/sdr_pmr446.c:420-518, 788-931)
 over a deterministic capture and packs the golden audio + decisions;
-here the TPU chain scans the SAME capture and must agree.
+here the JAX chain scans the SAME capture and must agree.
 
 The golden npz is produced by CI (.github/workflows/golden.yml) because
 liquid-dsp cannot be fetched on the zero-egress dev hosts; the test

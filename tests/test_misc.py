@@ -1,6 +1,7 @@
 """Profiling utils, PLL design exploration, graft entry points."""
 
 import numpy as np
+import pytest
 
 
 def test_throughput_meter():
@@ -38,7 +39,7 @@ def test_graft_entry_single():
     fn, args = g.entry()
     state, out = jax.jit(fn)(*args)
     jax.block_until_ready(out)
-    # flagship entry = group engine at K=8 (see __graft_entry__.entry)
+    # served entry = the cu8 wire at K=8 (see __graft_entry__.entry)
     assert np.asarray(out.active_chan).shape[0] == 8
 
 
@@ -97,61 +98,26 @@ def test_single_channel_chain():
     assert snr > 35.0, f"single-channel tone SNR {snr:.1f}"
 
 
-def test_single_channel_pallas_engine():
-    """The fused single-channel engine (front-end kernel + chan_tail with
-    the mixer folded into the decimator taps) == the XLA chain, streaming
-    across steps."""
+@pytest.mark.parametrize("fmt", ["cf32w", "cs16", "cu8", "cs8"])
+def test_single_channel_wire_input_equals_host_decoded(fmt):
+    """Raw wire words decoded on device == the chain fed the host-decoded
+    samples of the same wire, bit for bit, streaming across steps."""
     import jax.numpy as jnp
-    from sdr_pmr446_tpu import config as C
     from sdr_pmr446_tpu.io import synth
+    from sdr_pmr446_tpu.ops import decode
     from sdr_pmr446_tpu.scanner.single import SingleChannelChain
-    K = 8
-    ref = SingleChannelChain(channel=5, subchunks_per_step=K)
-    pal = SingleChannelChain(channel=5, subchunks_per_step=K,
-                             use_pallas=True, pallas_interpret=True)
-    n = 2 * ref.input_len
-    iq = synth.make_scanner_iq(n, channel=5, ctcss_code=12)
-    st1, st2 = ref.init_state(), pal.init_state()
+    ref = SingleChannelChain(channel=5, subchunks_per_step=4)
+    pkd = SingleChannelChain(channel=5, subchunks_per_step=4,
+                             input_format=fmt)
+    raw = decode.pack_iq(0.8 * synth.make_scanner_iq(
+        2 * ref.input_len, channel=5, ctcss_code=12), fmt)
+    wl = pkd.step_arg_len
+    st1, st2 = ref.init_state(), pkd.init_state()
     for i in range(2):
-        x = jnp.asarray(iq[i * ref.input_len:(i + 1) * ref.input_len],
-                        jnp.complex64)
-        st1, a1 = ref.step(st1, x)
-        st2, a2 = pal.step(st2, x)
-        a1 = np.asarray(a1, np.float64)
-        a2 = np.asarray(a2, np.float64)
-        err = a1 - a2
-        snr = 10 * np.log10(np.mean(a1 ** 2) / max(np.mean(err ** 2),
-                                                   1e-30))
-        assert snr > 60.0, f"step {i}: differential SNR {snr:.1f} dB"
-
-
-def test_single_mono_engine_equals_two_kernel():
-    """MONO single-channel engine == two-kernel fused engine."""
-    import jax.numpy as jnp
-    from sdr_pmr446_tpu import config as C
-    from sdr_pmr446_tpu.io import synth
-    from sdr_pmr446_tpu.scanner.single import SingleChannelChain
-    K = 8
-    two = SingleChannelChain(channel=5, subchunks_per_step=K,
-                             use_pallas=True, pallas_interpret=True,
-                             mono=False)
-    one = SingleChannelChain(channel=5, subchunks_per_step=K,
-                             use_pallas=True, pallas_interpret=True)
-    assert one.mono and not two.mono
-    n = 2 * two.input_len
-    iq = synth.make_scanner_iq(n, channel=5, ctcss_code=12)
-    st1, st2 = two.init_state(), one.init_state()
-    for i in range(2):
-        x = jnp.asarray(iq[i * two.input_len:(i + 1) * two.input_len],
-                        jnp.complex64)
-        st1, a1 = two.step(st1, x)
-        st2, a2 = one.step(st2, x)
-        a1 = np.asarray(a1, np.float64)
-        a2 = np.asarray(a2, np.float64)
-        err = a1 - a2
-        snr = 10 * np.log10(np.mean(a1 ** 2) / max(np.mean(err ** 2),
-                                                   1e-30))
-        assert snr > 100.0, f"step {i}: {snr:.1f} dB"
+        w = jnp.asarray(raw[i * wl:(i + 1) * wl])
+        st1, a1 = ref.step(st1, decode.decode_complex(w, fmt))
+        st2, a2 = pkd.step(st2, w)
+        np.testing.assert_array_equal(np.asarray(a1), np.asarray(a2))
 
 
 def test_transfer_fetch_roundtrip():
@@ -224,52 +190,3 @@ def test_channel_center_frequencies():
     assert channel_center_hz(1) == 446_006_250.0
     assert channel_center_hz(16) == 446_193_750.0
     assert channel_center_hz(9) - channel_center_hz(8) == 12_500.0
-
-
-def test_physical_shape_bytes():
-    """tools/hlo_audit.py tile-padded sizing (VERDICT r4 #1): the padded
-    physical bytes of laid-out TPU HLO shapes, checked against layouts
-    read off the compiled flagship step."""
-    import os
-    import sys
-    sys.path.insert(0, os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "tools"))
-    from hlo_audit import shape_bytes, shape_physical_bytes
-
-    cases = [
-        # the 5.12x lane-padded demod plane (RESULTS.md hlo_audit note)
-        ("f32[16,392,25]{2,1,0:T(8,128)S(1)}", 16 * 392 * 128 * 4),
-        ("f32[16,80,128]{2,1,0:T(8,128)S(1)}", 16 * 80 * 128 * 4),
-        ("f32[16,9800]{1,0:T(8,128)S(1)}", 16 * 9856 * 4),
-        ("s32[9800]{0:T(1024)S(1)}", 10240 * 4),
-        # RSSI boundary selector: minor 16 lanes pad to 128
-        ("f32[49,2,16]{2,1,0:T(2,128)S(1)}", 49 * 2 * 128 * 4),
-        # non-trivial permutation: phys order [1, 8, 1225] -> [1, 8, 1280]
-        ("s32[8,1225,1]{1,0,2:T(8,128)S(1)}", 8 * 1280 * 4),
-        # bf16 sub-tile (2,1): sublanes pad to 16, lanes to 128
-        ("bf16[100,300]{1,0:T(8,128)(2,1)}", 112 * 384 * 2),
-        ("f32[16,512]{1,0:T(8,128)}", 16 * 512 * 4),
-        ("f32[100]", 400),
-    ]
-    for shape, want in cases:
-        assert shape_physical_bytes(shape) == want, shape
-        assert shape_physical_bytes(shape) >= shape_bytes(shape)
-
-
-def test_physical_traffic_floor():
-    """The physical (tile-padded) floor dominates the logical one for
-    every engine/format, and bench.py's flagship floors match the
-    audited factors."""
-    from sdr_pmr446_tpu.utils.traffic import chain_traffic
-
-    for fmt in ("cf32", "cf32w", "cs16", "cu8"):
-        for kw in (dict(fuse_band=True, fuse_rssi=True, fuse_ctcss=True),
-                   dict(fuse_dc=True), dict(use_pallas=False)):
-            logical = chain_traffic(fmt, **kw)["total"]
-            phys = chain_traffic(fmt, physical=True, **kw)["total"]
-            assert phys >= logical, (fmt, kw)
-    duo = dict(fuse_band=True, fuse_rssi=True, fuse_ctcss=True)
-    assert chain_traffic("cu8", **duo)["total"] == 4.54
-    assert abs(chain_traffic("cu8", physical=True, **duo)["total"]
-               - 11.7) < 0.01

@@ -1,8 +1,7 @@
 """Multi-block-per-dispatch (chain.multi_step / driver steps_per_dispatch).
 
 The megastep fuses S block steps into ONE device dispatch with lax.scan,
-amortizing the per-dispatch runtime floor (the dominant cost at deployment
-block sizes, RESULTS.md).  Contract: every integer/boolean output (FSM
+amortizing the per-dispatch runtime floor.  Contract: every integer/boolean output (FSM
 decisions, events, CTCSS codes) is EXACTLY equal to S successive step()
 calls; float outputs and carried state agree to f32 rounding (the scan
 body compiles with different fusion/FMA choices than the standalone step,

@@ -250,17 +250,11 @@ def test_step_size_invariance():
 
 
 @pytest.mark.parametrize("fmt", ["cs16", "cu8", "cf32w"])
-@pytest.mark.parametrize("engine", ["xla", "pallas"])
-def test_packed_input_chain_equals_cf32(fmt, engine):
+def test_packed_input_chain_equals_cf32(fmt):
     """Chain fed RAW wire bytes (decoded on device, ops/decode.py) is
     bit-identical to the cf32 chain fed the host-converted samples.
-
     cf32w is the lossless case: the f32 wire bytes ARE the complex64
-    capture, consumed in place by the fused front end (pallas engine).
-    Exception: cu8 under pallas runs the WIDE-row fused kernel
-    (kernels/front_end.py::apply_packed2) whose width-256 constants
-    reorder f32 summations — decisions stay bit-exact but float outputs
-    match to fp tolerance rather than bit-for-bit."""
+    capture."""
     from sdr_pmr446_tpu.ops import decode
     k = 3
     n = 2 * C.BlockConfig(k).input_len
@@ -269,11 +263,9 @@ def test_packed_input_chain_equals_cf32(fmt, engine):
     xr, xi = decode.decode_planes(jnp.asarray(packed), fmt)
     host_iq = (np.asarray(xr) + 1j * np.asarray(xi)).astype(np.complex64)
 
-    kw = dict(use_pallas=(engine == "pallas"), pallas_interpret=True)
     params = make_runtime_params(C.ScannerArgs())
-
-    ref_chain = ScannerChain(C.BlockConfig(k), **kw)
-    pkd_chain = ScannerChain(C.BlockConfig(k), input_format=fmt, **kw)
+    ref_chain = ScannerChain(C.BlockConfig(k))
+    pkd_chain = ScannerChain(C.BlockConfig(k), input_format=fmt)
     assert pkd_chain.step_arg_len == n // 2 // decode.PACKED_FORMATS[fmt]
     st_r, st_p = ref_chain.init_state(), pkd_chain.init_state()
     wlen = pkd_chain.step_arg_len
@@ -284,131 +276,61 @@ def test_packed_input_chain_equals_cf32(fmt, engine):
             params)
         st_p, o_p = pkd_chain.step(
             st_p, jnp.asarray(packed[i * wlen:(i + 1) * wlen]), params)
-        wide_kernel = engine == "pallas" and fmt in ("cu8", "cs8")
         for f in o_r._fields:
-            a = np.asarray(getattr(o_r, f))
-            b = np.asarray(getattr(o_p, f))
-            if wide_kernel and a.dtype.kind == "f":
-                np.testing.assert_allclose(
-                    a, b, rtol=0,
-                    atol=(1e-2 if f == "rssi_db" else 1e-4),
-                    err_msg=f"{fmt}/{engine} field {f} step {i}")
-            else:
-                np.testing.assert_array_equal(
-                    a, b, err_msg=f"{fmt}/{engine} field {f} step {i}")
+            np.testing.assert_array_equal(
+                np.asarray(getattr(o_r, f)), np.asarray(getattr(o_p, f)),
+                err_msg=f"{fmt} field {f} step {i}")
 
 
-def test_fused_ctcss_chain_equality():
-    """fuse_ctcss (in-kernel CTCSS DFT driven by the RSSI-only schedule)
-    vs the lp-plane path: every decision/event stream exact, audio
-    bit-exact (the audio column is untouched by the fusion)."""
-    iq = synth.make_scanner_iq(10 * C.SUBCHUNK_IN, channel=5, ctcss_code=12)
-    res = {}
-    for name, on in [("off", False), ("on", True)]:
-        _, outs, _ = run_chain(iq, use_pallas=True, pallas_interpret=True,
-                               fuse_ctcss=on)
-        res[name] = outs
-    a, b = res["off"], res["on"]
-    for f in a:
-        if f == "waterfall":
-            continue
-        np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+_ORACLE_CACHE: dict = {}
 
 
-def test_fuse_band_duo_chain_equality():
-    """fuse_band (front end + PFB in ONE kernel, kernels/duo.py — the
-    band never leaves VMEM) vs the two-kernel group path: decisions and
-    CTCSS events exact, audio to f32 rounding, streaming state carried."""
-    iq = synth.make_scanner_iq(16 * C.SUBCHUNK_IN, channel=5,
-                               ctcss_code=12)
-    res = {}
-    for name, fb in [("trio", False), ("duo", True)]:
-        _, outs, ch = run_chain(iq, subchunks_per_step=8, use_pallas=True,
-                                pallas_interpret=True, fuse_band=fb)
-        assert ch.fuse_band == fb
-        res[name] = outs
-    a, b = res["trio"], res["duo"]
-    for f in a:
-        if f in ("audio", "rel_rssi", "rssi_db", "ct_freq", "waterfall"):
-            continue
-        np.testing.assert_array_equal(a[f], b[f], err_msg=f)
-    np.testing.assert_allclose(a["rssi_db"], b["rssi_db"], rtol=0,
-                               atol=5e-3)
-    assert np.max(np.abs(a["audio"] - b["audio"])) < 1e-4
+def _wire_capture_and_oracle(fmt):
+    """(wire words, host-decoded complex capture, oracle) for a 16
+    sub-chunk channel-5/CTCSS-12 capture quantized to ``fmt``; the oracle
+    runs on exactly the samples the device decodes.  Cached per format:
+    the K=1 and K=8 cases share one oracle run."""
+    if fmt not in _ORACLE_CACHE:
+        from sdr_pmr446_tpu.ops import decode
+        iq = 0.8 * synth.make_scanner_iq(16 * C.SUBCHUNK_IN, channel=5,
+                                         ctcss_code=12)
+        if fmt == "cf32":
+            wire = iq.astype(np.complex64)
+            host = wire
+        else:
+            wire = decode.pack_iq(iq, fmt)
+            xr, xi = decode.decode_planes(jnp.asarray(wire), fmt)
+            host = (np.asarray(xr) + 1j * np.asarray(xi)).astype(
+                np.complex64)
+        ora = ScannerOracle()
+        ora.process(host.astype(np.complex128))
+        _ORACLE_CACHE[fmt] = (wire, ora)
+    return _ORACLE_CACHE[fmt]
 
 
-@pytest.mark.parametrize("w", [64, 80])
-def test_duo_in_kernel_waterfall_matches_asgram(w):
-    """The duo kernel's in-kernel hop-PSD waterfall epilogue (only the
-    [K, w] |S|^2 sums ever leave VMEM) vs the trio path's band_out + XLA
-    asgram tap: same dB rows across streaming steps (the cross-step hop
-    window rides the PFB's own band-row history carry)."""
-    from sdr_pmr446_tpu.ops import spectrogram
-    assert spectrogram.kernel_wf_supported(w)
-    iq = synth.make_scanner_iq(16 * C.SUBCHUNK_IN, channel=5,
-                               ctcss_code=12)
-    res = {}
-    for name, fb in [("trio", False), ("duo", True)]:
-        _, outs, ch = run_chain(iq, subchunks_per_step=8, use_pallas=True,
-                                pallas_interpret=True, fuse_band=fb,
-                                waterfall=w)
-        assert ch.fuse_band == fb
-        res[name] = outs["waterfall"]
-    np.testing.assert_allclose(res["duo"], res["trio"], rtol=0, atol=2e-3)
-
-
-def test_duo_waterfall_unsupported_width_falls_back():
-    """w=120 (hop 30 does not divide the sub-chunk): the duo runs
-    band_out + the XLA asgram-any tap, rows equal to the trio path's."""
-    from sdr_pmr446_tpu.ops import spectrogram
-    w = 120
-    assert not spectrogram.kernel_wf_supported(w)
-    iq = synth.make_scanner_iq(8 * C.SUBCHUNK_IN, channel=5,
-                               ctcss_code=12)
-    res = {}
-    for name, fb in [("trio", False), ("duo", True)]:
-        _, outs, _ = run_chain(iq, subchunks_per_step=8, use_pallas=True,
-                               pallas_interpret=True, fuse_band=fb,
-                               waterfall=w)
-        res[name] = outs["waterfall"]
-    np.testing.assert_allclose(res["duo"], res["trio"], rtol=0, atol=2e-3)
-
-
-@pytest.mark.parametrize("w,k", [(128, 16), (120, 24)])
-def test_duo_in_kernel_waterfall_general_widths(w, k):
-    """VERDICT r4 #4: widths whose hop does NOT divide the 400-sample
-    group row (w=120 is the reference README's own demo width) run
-    in-kernel via the phase-class row-selector epilogue at phase-reset
-    geometries — dB rows equal the band_out + XLA asgram-any tap across
-    streaming steps (the per-step hop phase provably returns to 0)."""
-    from sdr_pmr446_tpu.ops import spectrogram
-    assert not spectrogram.kernel_wf_supported(w)          # not uniform
-    assert spectrogram.kernel_wf_supported(w, k=k)         # general
-    iq = synth.make_scanner_iq(2 * k * C.SUBCHUNK_IN, channel=5,
-                               ctcss_code=12)
-    res = {}
-    for name, fb in [("trio", False), ("duo", True)]:
-        _, outs, ch = run_chain(iq, subchunks_per_step=k, use_pallas=True,
-                                pallas_interpret=True, fuse_band=fb,
-                                waterfall=w)
-        assert ch.fuse_band == fb
-        res[name] = outs["waterfall"]
-    np.testing.assert_allclose(res["duo"], res["trio"], rtol=0, atol=2e-3)
-
-
-def test_wf_row_counts_match_onehot_oracle():
-    """wf_row_counts (the static per-row averages of the general
-    in-kernel path) equals the one-hot fire counting of asgram_rows_any
-    at phase 0, for every legal width class."""
-    from sdr_pmr446_tpu.ops import spectrogram
-    sub = C.SUBCHUNK_RESAMP
-    for w, k in [(120, 24), (128, 16), (64, 8), (24, 24)]:
-        delay = w // 4
-        counts = spectrogram.wf_row_counts(w, k)
-        assert counts.shape == (k,)
-        assert counts.sum() == (k * sub) // delay
-        ends = np.arange(delay, k * sub + 1, delay)
-        ref = np.zeros(k)
-        for e in ends:
-            ref[(e - 1) // sub] += 1
-        np.testing.assert_array_equal(counts, ref)
+@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("fmt", ["cf32", "cf32w", "cs16", "cu8", "cs8"])
+def test_wire_formats_match_oracle(fmt, k):
+    """Every wire the apps feed (cf32 host-converted, cf32w/cs16/cu8/cs8
+    decoded on device), at the real-time cadence K=1 and at K=8: the
+    sub-chunk control trace equals the float64 oracle's exactly, the
+    CTCSS code is identified, and the audio is within the 40 dB gate."""
+    wire, ora = _wire_capture_and_oracle(fmt)
+    chain = ScannerChain(C.BlockConfig(k), input_format=fmt)
+    params = make_runtime_params(C.ScannerArgs())
+    st = chain.init_state()
+    wl = chain.step_arg_len
+    outs = []
+    for i in range(len(wire) // wl):
+        st, o = chain.step(st, jnp.asarray(wire[i * wl:(i + 1) * wl]),
+                           params)
+        outs.append(o)
+    cat = lambda f: np.concatenate([np.asarray(getattr(o, f))
+                                    for o in outs])
+    np.testing.assert_array_equal(cat("active_chan"),
+                                  np.asarray(ora.active_trace))
+    assert cat("ct_detected")[-1] and cat("ct_max_idx")[-1] == 11
+    j = cat("audio")[cat("audio_valid")][2:].ravel()
+    o = np.stack(ora.audio)[2:].ravel()
+    snr = 10 * np.log10(np.mean(o ** 2) / max(np.mean((j - o) ** 2), 1e-30))
+    assert snr > 40.0, f"{fmt} K={k}: audio SNR vs oracle {snr:.1f} dB"

@@ -195,7 +195,7 @@ def test_halo_hist_and_scalar_prev_direct():
 
 
 def test_batch_reader_feeds_stream_parallel_chain(tmp_path):
-    """BASELINE config 5 integration: the native multi-stream batch reader
+    """Stream-parallel integration: the native multi-stream batch reader
     feeds the (stream x time)-sharded scanner; each stream's decisions match
     its own single-stream run."""
     from sdr_pmr446_tpu.io import iq as iq_io, native
@@ -244,82 +244,6 @@ def test_batch_reader_feeds_stream_parallel_chain(tmp_path):
         assert np.concatenate(traces[s])[-1] == 3 + s
 
 
-def test_sharded_scanner_halo_dma_equals_collective():
-    """ShardedScannerChain(halo_dma=True) — front-end halos moved by the
-    Pallas remote-DMA ring shift (TPU-interpreter-simulated) — must equal
-    the ppermute version field-for-field across streaming steps."""
-    from sdr_pmr446_tpu.parallel.scanner_sharded import ShardedScannerChain
-    from sdr_pmr446_tpu.scanner.chain import make_runtime_params
-    from sdr_pmr446_tpu.io import synth
-
-    mesh = make_mesh(2, 4)
-    K = 4
-    params = make_runtime_params(C.ScannerArgs())
-    iq = np.stack([
-        synth.make_scanner_iq(K * C.SUBCHUNK_IN, channel=3 + s,
-                              ctcss_code=5 + s, seed=s)
-        for s in range(2)]).astype(np.complex64)
-
-    outs = {}
-    for dma in (False, True):
-        chain = ShardedScannerChain(mesh, C.BlockConfig(K), halo_dma=dma)
-        st = chain.init_state(2)
-        res = []
-        for _ in range(2):
-            st, o = chain.step(st, jnp.asarray(iq), params)
-            res.append(o)
-        outs[dma] = res
-    for o1, o2 in zip(outs[False], outs[True]):
-        for f in o1._fields:
-            np.testing.assert_array_equal(
-                np.asarray(getattr(o1, f)), np.asarray(getattr(o2, f)),
-                err_msg=f)
-
-
-def test_sharded_pallas_equals_unsharded_pallas():
-    """ShardedScannerChain(use_pallas=True): the plane-kernel path inside
-    shard_map (per-shard Pallas kernels + halos, incl. the 416-tap
-    last-frame discriminator halo) == the single-chip pallas chain."""
-    from sdr_pmr446_tpu.parallel.scanner_sharded import ShardedScannerChain
-    from sdr_pmr446_tpu.scanner.chain import make_runtime_params
-
-    K = 4
-    step_len = K * C.SUBCHUNK_IN
-    iq = synth.make_scanner_iq(2 * step_len, channel=5, ctcss_code=12)
-    params = make_runtime_params(C.ScannerArgs())
-
-    # fuse_dc=False: the sharded chain runs the unfused DC blocker (plane
-    # scan + affine shard carry), so compare against the same arithmetic
-    ref_chain = ScannerChain(C.BlockConfig(K), use_pallas=True,
-                             pallas_interpret=True, fuse_dc=False)
-    st1 = ref_chain.init_state()
-    refs = []
-    for i in range(2):
-        st1, o = ref_chain.step(st1, jnp.asarray(
-            iq[i * step_len:(i + 1) * step_len], jnp.complex64), params)
-        refs.append(jax.tree.map(np.asarray, o))
-
-    mesh = make_mesh(1, 4)
-    chain = ShardedScannerChain(mesh, C.BlockConfig(K), use_pallas=True,
-                                pallas_interpret=True)
-    st2 = chain.init_state(1)
-    for i in range(2):
-        st2, out = chain.step(st2, jnp.asarray(
-            iq[None, i * step_len:(i + 1) * step_len], jnp.complex64),
-            params)
-        out = jax.tree.map(np.asarray, out)
-        ref = refs[i]
-        np.testing.assert_array_equal(out.active_chan[0], ref.active_chan)
-        np.testing.assert_array_equal(out.ct_detected[0], ref.ct_detected)
-        np.testing.assert_array_equal(out.ct_max_idx[0], ref.ct_max_idx)
-        # 0.005 dB: the sharded DC blocker's affine carry rounds differently
-        # from the sequential scan, visible only at the -80 dB noise floor
-        np.testing.assert_allclose(out.rssi_db[0], ref.rssi_db,
-                                   rtol=0, atol=5e-3)
-        np.testing.assert_allclose(out.audio[0], ref.audio,
-                                   rtol=0, atol=1e-4)
-
-
 def test_sharded_faithful_equals_unsharded_faithful():
     """ShardedFaithfulChain (front-end time-sharded, gated scan replicated
     on all-gathered sub-chunks) == FaithfulScannerChain across a busy
@@ -363,11 +287,12 @@ def test_sharded_faithful_equals_unsharded_faithful():
                                    rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("w", [64, 120])
+@pytest.mark.parametrize("w", [64, 120, 128])
 def test_sharded_waterfall_equals_unsharded(w):
     """Sharded waterfall rows (w/2 band-history halo) == single-chip rows
-    — including the non-dividing-hop general path (w=120), whose per-shard
-    hop counter is analytic from the carried one."""
+    — including the non-dividing-hop general path (w=120, the reference
+    README's width, and w=128), whose per-shard hop counter is analytic
+    from the carried one."""
     from sdr_pmr446_tpu.parallel.scanner_sharded import ShardedScannerChain
     from sdr_pmr446_tpu.scanner.chain import make_runtime_params
 
@@ -426,207 +351,6 @@ def test_sharded_packed_input_equals_cf32(fmt):
             np.testing.assert_array_equal(
                 np.asarray(getattr(o_r, f)), np.asarray(getattr(o_p, f)),
                 err_msg=f"{fmt} field {f} step {i}")
-
-
-# ---------------------------------------------------------------------------
-# FLAGSHIP fused engine, time-sharded (round 4): the exact configuration
-# bench.py records (fused front end + GROUP band + in-kernel RSSI/DC/CTCSS)
-# running through ShardedScannerChain with zero-init kernel runs + affine
-# post-correction (parallel/fused_halo.py).
-# ---------------------------------------------------------------------------
-
-def _iq_to_wire(sig, fmt, shape):
-    from sdr_pmr446_tpu.ops import decode as decode_op
-    if fmt == "cf32w":
-        w = np.empty(2 * len(sig), np.float32)
-        w[0::2] = np.asarray(sig).real
-        w[1::2] = np.asarray(sig).imag
-        return w.reshape(shape)
-    return decode_op.pack_iq(np.asarray(sig), fmt).reshape(shape)
-
-
-def _run_fused_pair(fmt, K, nt, n_steps=2, waterfall=0,
-                    fuse_band=True):
-    """(refs, outs): single-chip flagship vs fused sharded, same wire."""
-    step_len = K * C.SUBCHUNK_IN
-    iq = synth.make_scanner_iq(n_steps * step_len, channel=5, ctcss_code=12)
-    params = make_runtime_params(C.ScannerArgs())
-    if fmt in ("cs16", "cu8", "cs8"):
-        from sdr_pmr446_tpu.ops import decode as decode_op
-        raw = decode_op.pack_iq(np.asarray(iq), fmt)
-
-    ref_chain = ScannerChain(C.BlockConfig(K), use_pallas=True,
-                             pallas_interpret=True, input_format=fmt,
-                             waterfall=waterfall, fuse_band=fuse_band)
-    assert ref_chain.fuse_group and ref_chain.fuse_ctcss
-    assert ref_chain.fuse_band == fuse_band
-    wl = ref_chain.step_arg_len
-    st1 = ref_chain.init_state()
-    refs = []
-    for i in range(n_steps):
-        if fmt == "cf32w":
-            w = _iq_to_wire(iq[i * step_len:(i + 1) * step_len], fmt,
-                            ref_chain.step_arg_shape)
-        else:
-            w = raw[i * wl:(i + 1) * wl].reshape(ref_chain.step_arg_shape)
-        st1, o = ref_chain.step(st1, jnp.asarray(w), params)
-        refs.append(jax.tree.map(np.asarray, o))
-
-    mesh = make_mesh(1, nt)
-    chain = ShardedScannerChain(mesh, C.BlockConfig(K), use_pallas=True,
-                                pallas_interpret=True, input_format=fmt,
-                                waterfall=waterfall, fuse_band=fuse_band)
-    assert chain.fused, "flagship fused sharded path must engage"
-    assert chain.fused_duo == fuse_band
-    st2 = chain.init_state(1)
-    outs = []
-    for i in range(n_steps):
-        if fmt == "cf32w":
-            w = _iq_to_wire(iq[i * step_len:(i + 1) * step_len], fmt,
-                            chain.step_arg_shape)
-        else:
-            w = raw[i * wl:(i + 1) * wl].reshape(chain.step_arg_shape)
-        st2, o = chain.step(st2, jnp.asarray(w)[None], params)
-        outs.append(jax.tree.map(np.asarray, o))
-    return refs, outs
-
-
-def _assert_fused_equal(refs, outs):
-    for i, (ref, out) in enumerate(zip(refs, outs)):
-        # decisions + events EXACT (the group-path gate,
-        # tests/test_group_band.py); audio/rssi to f32-correction rounding
-        for f in ("active_chan", "ct_detected", "ct_max_idx", "ev_tuned",
-                  "ev_detuned", "ev_changed", "ev_prev_chan", "ev_new_chan",
-                  "ev_ct_acquired", "ev_ct_changed", "ev_ct_lost",
-                  "audio_valid"):
-            np.testing.assert_array_equal(getattr(out, f)[0],
-                                          getattr(ref, f),
-                                          err_msg=f"{f} step {i}")
-        np.testing.assert_allclose(out.rssi_db[0], ref.rssi_db, rtol=0,
-                                   atol=5e-3, err_msg=f"rssi step {i}")
-        np.testing.assert_allclose(out.audio[0], ref.audio, rtol=0,
-                                   atol=1e-3, err_msg=f"audio step {i}")
-        assert np.max(np.abs(out.audio[0] - ref.audio)) < 1e-4
-        if ref.waterfall.shape[-1]:
-            np.testing.assert_allclose(out.waterfall[0], ref.waterfall,
-                                       rtol=0, atol=0.05,
-                                       err_msg=f"waterfall step {i}")
-
-
-def test_sharded_fused_flagship_equals_unsharded():
-    """The RECORDED engine (cf32w DUO chain — front+PFB one kernel, band
-    never in HBM) time-sharded over 2 devices == the single-chip
-    flagship, across two streaming steps (so every cross-shard carry —
-    IQ DC exact-state pre-pass, resampler history, PFB group row,
-    discriminator frame, audio look-behind, lp-DC affine, CTCSS
-    phase/carry — survives a step boundary)."""
-    refs, outs = _run_fused_pair("cf32w", K=16, nt=2)
-    _assert_fused_equal(refs, outs)
-
-
-def test_sharded_fused_trio_equals_unsharded():
-    """The two-kernel (trio) fused path — zero-init front kernel + band
-    affine correction — stays covered with fuse_band=False."""
-    refs, outs = _run_fused_pair("cf32w", K=16, nt=2, n_steps=1,
-                                 fuse_band=False)
-    _assert_fused_equal(refs, outs)
-
-
-@pytest.mark.parametrize("fmt", ["cs16", "cu8", "cs8"])
-def test_sharded_fused_packed_formats(fmt):
-    """In-kernel wire decode (cs16 narrow / cu8+cs8 wide-row) under time
-    sharding: same wire bytes, same decisions, audio to the group gate."""
-    refs, outs = _run_fused_pair(fmt, K=16, nt=2, n_steps=1)
-    _assert_fused_equal(refs, outs)
-
-
-def test_sharded_fused_waterfall_four_shards():
-    """Waterfall tap on the CORRECTED band planes, 4 time shards."""
-    refs, outs = _run_fused_pair("cf32w", K=32, nt=4, n_steps=1,
-                                 waterfall=64)
-    _assert_fused_equal(refs, outs)
-
-
-def test_sharded_dsd_mono_equals_unsharded():
-    """The MONO dsd engine (whole chain in one kernel) time-sharded ==
-    the single-chip mono chain: the exact-state pre-pass rebuilds every
-    tail halo (front history, band rows, discriminator sample, demod
-    history) from a corrected DC tail, so the unmodified kernel runs
-    per shard.  PCM within 1 LSB / >60 dB across streaming steps."""
-    from sdr_pmr446_tpu.scanner.dsd_in import DsdInChain
-    from sdr_pmr446_tpu.parallel.dsd_sharded import ShardedDsdInChain
-
-    K = 16
-    n = K * C.SUBCHUNK_IN
-    fs = C.SDR_SAMPLERATE
-    t = np.arange(2 * n) / fs
-    msg = 0.5 * np.sin(2 * np.pi * 1000.0 * t)
-    iq = np.exp(1j * 2 * np.pi * (2000.0 * np.cumsum(msg)
-                                  + 300.0 * np.arange(2 * n)) / fs)
-
-    ref = DsdInChain(K, use_pallas=True, pallas_interpret=True)
-    st1 = ref.init_state()
-    refs = []
-    for i in range(2):
-        st1, o = ref.step(st1, jnp.asarray(iq[i * n:(i + 1) * n],
-                                           jnp.complex64))
-        refs.append(np.asarray(o.pcm, np.float64))
-
-    mesh = make_mesh(1, 2)
-    ch = ShardedDsdInChain(mesh, K, use_pallas=True, pallas_interpret=True)
-    assert ch.mono
-    st2 = ch.init_state(1)
-    for i in range(2):
-        st2, o = ch.step(st2, jnp.asarray(iq[None, i * n:(i + 1) * n],
-                                          jnp.complex64))
-        p = np.asarray(o.pcm[0], np.float64)
-        err = p - refs[i]
-        snr = 10 * np.log10(max(np.mean(refs[i] ** 2), 1e-30)
-                            / max(np.mean(err ** 2), 1e-30))
-        assert snr > 60.0 and np.abs(err).max() <= 2.0, (i, snr)
-
-
-@pytest.mark.parametrize("fmt", ["cs16", "cu8", "cf32w"])
-def test_sharded_dsd_mono_packed_wire(fmt):
-    """Packed-wire sharded dsd MONO: raw wire words time-sharded, the
-    wire-direct pre-pass (kernels/summary.py) + in-kernel decode — same
-    PCM as the single-chip mono chain on the same bytes."""
-    from sdr_pmr446_tpu.ops import decode as decode_op
-    from sdr_pmr446_tpu.scanner.dsd_in import DsdInChain
-    from sdr_pmr446_tpu.parallel.dsd_sharded import ShardedDsdInChain
-
-    K = 16
-    n = K * C.SUBCHUNK_IN
-    fs = C.SDR_SAMPLERATE
-    t = np.arange(2 * n) / fs
-    msg = 0.5 * np.sin(2 * np.pi * 1000.0 * t)
-    iq = np.exp(1j * 2 * np.pi * (2000.0 * np.cumsum(msg)
-                                  + 300.0 * np.arange(2 * n)) / fs)
-    wire = decode_op.pack_iq(iq, fmt)
-    wl = wire.shape[0] // 2
-
-    ref = DsdInChain(K, use_pallas=True, pallas_interpret=True,
-                     input_format=fmt)
-    st1 = ref.init_state()
-    refs = []
-    for i in range(2):
-        w = wire[i * wl:(i + 1) * wl].reshape(ref.step_arg_shape)
-        st1, o = ref.step(st1, jnp.asarray(w))
-        refs.append(np.asarray(o.pcm, np.float64))
-
-    mesh = make_mesh(1, 2)
-    ch = ShardedDsdInChain(mesh, K, use_pallas=True, pallas_interpret=True,
-                           input_format=fmt)
-    assert ch.mono
-    st2 = ch.init_state(1)
-    for i in range(2):
-        w = wire[i * wl:(i + 1) * wl]
-        st2, o = ch.step(st2, jnp.asarray(w)[None])
-        p = np.asarray(o.pcm[0], np.float64)
-        err = p - refs[i]
-        snr = 10 * np.log10(max(np.mean(refs[i] ** 2), 1e-30)
-                            / max(np.mean(err ** 2), 1e-30))
-        assert snr > 60.0 and np.abs(err).max() <= 2.0, (i, snr)
 
 
 @pytest.mark.parametrize("mesh_shape", [(1, 4), (2, 2)])
@@ -709,131 +433,17 @@ def test_sharded_single_multi_step():
                                atol=5e-6)
 
 
-def test_sharded_single_mono_equals_unsharded():
-    """The MONO single-channel engine (whole chain in one kernel)
-    time-sharded == the single-chip mono chain: the exact-state
-    pre-pass rebuilds the band/sig/demod halos through the XLA
-    resampler + mixer + channel filter; every shard shares one global
-    rot (t_band_local % 32 == 0 at K_local % 8 == 0).  Audio > 60 dB
-    across streaming steps."""
-    from sdr_pmr446_tpu.scanner.single import SingleChannelChain
-    from sdr_pmr446_tpu.parallel.single_sharded import ShardedSingleChain
-
-    K = 16
-    chan = 7
-    n = K * C.SUBCHUNK_IN
-    iq = synth.make_scanner_iq(2 * n, channel=chan, ctcss_code=6, seed=4)
-
-    ref = SingleChannelChain(channel=chan, subchunks_per_step=K,
-                             use_pallas=True, pallas_interpret=True)
-    assert ref.mono
-    st1 = ref.init_state()
-    refs = []
-    for i in range(2):
-        st1, a = ref.step(st1, jnp.asarray(iq[i * n:(i + 1) * n],
-                                           jnp.complex64))
-        refs.append(np.asarray(a, np.float64))
-
-    mesh = make_mesh(1, 2)
-    ch = ShardedSingleChain(mesh, channel=chan, subchunks_per_step=K,
-                            use_pallas=True, pallas_interpret=True)
-    assert ch.mono
-    st2 = ch.init_state(1)
-    for i in range(2):
-        st2, a = ch.step(st2, jnp.asarray(iq[None, i * n:(i + 1) * n],
-                                          jnp.complex64))
-        g = np.asarray(a[0], np.float64)
-        err = g - refs[i]
-        snr = 10 * np.log10(max(np.mean(refs[i] ** 2), 1e-30)
-                            / max(np.mean(err ** 2), 1e-30))
-        assert snr > 60.0, (i, snr)
-    # the replicated mixer phase must advance exactly as unsharded
-    assert int(np.asarray(st2.n0)[0]) == int(np.asarray(st1.n0))
-
-
-@pytest.mark.parametrize("fmt", ["cf32w", "cs16"])
-def test_sharded_single_mono_packed_wire(fmt):
-    """Packed-wire sharded single MONO: raw wire words time-sharded,
-    wire-direct pre-pass + in-kernel decode — same audio as the
-    single-chip mono chain on the same bytes."""
-    from sdr_pmr446_tpu.ops import decode as decode_op
-    from sdr_pmr446_tpu.scanner.single import SingleChannelChain
-    from sdr_pmr446_tpu.parallel.single_sharded import ShardedSingleChain
-
-    K = 16
-    chan = 7
-    n = K * C.SUBCHUNK_IN
-    iq = synth.make_scanner_iq(2 * n, channel=chan, ctcss_code=6, seed=4)
-    wire = decode_op.pack_iq(iq, fmt)
-    wl = wire.shape[0] // 2
-
-    ref = SingleChannelChain(channel=chan, subchunks_per_step=K,
-                             use_pallas=True, pallas_interpret=True,
-                             input_format=fmt)
-    assert ref.mono
-    st1 = ref.init_state()
-    refs = []
-    for i in range(2):
-        w = wire[i * wl:(i + 1) * wl].reshape(ref.step_arg_shape)
-        st1, a = ref.step(st1, jnp.asarray(w))
-        refs.append(np.asarray(a, np.float64))
-
-    mesh = make_mesh(1, 2)
-    ch = ShardedSingleChain(mesh, channel=chan, subchunks_per_step=K,
-                            use_pallas=True, pallas_interpret=True,
-                            input_format=fmt)
-    assert ch.mono
-    st2 = ch.init_state(1)
-    for i in range(2):
-        w = wire[i * wl:(i + 1) * wl]
-        st2, a = ch.step(st2, jnp.asarray(w)[None])
-        g = np.asarray(a[0], np.float64)
-        err = g - refs[i]
-        snr = 10 * np.log10(max(np.mean(refs[i] ** 2), 1e-30)
-                            / max(np.mean(err ** 2), 1e-30))
-        assert snr > 60.0, (i, snr)
-
-
 def test_sharded_single_rejects_invalid_geometry():
-    """ADVICE r4: the sharded single chain must raise (not silently
-    degrade) on a non-dividing time mesh, on use_pallas with
-    K_local % 8 != 0, and on wire formats without the mono engine."""
+    """The sharded single chain raises (not silently degrades) on a
+    non-dividing time mesh, an unknown wire format and a channel out of
+    the band plan."""
     from sdr_pmr446_tpu.parallel.single_sharded import ShardedSingleChain
 
     mesh = make_mesh(1, 4)
     with pytest.raises(ValueError, match="divide"):
         ShardedSingleChain(mesh, channel=5, subchunks_per_step=6)
-    with pytest.raises(ValueError, match="mono engine needs"):
-        ShardedSingleChain(mesh, channel=5, subchunks_per_step=16,
-                           use_pallas=True)   # K_local = 4
-    with pytest.raises(ValueError, match="wire input formats"):
+    with pytest.raises(ValueError, match="unsupported input_format"):
         ShardedSingleChain(mesh, channel=5, subchunks_per_step=4,
-                           input_format="cs16")
-
-
-def test_sharded_fused_waterfall_general_width():
-    """In-kernel GENERAL-width waterfall (hop not dividing the group
-    row; VERDICT r4 #4) on the fused sharded chain: w=128 engages the
-    phase-class epilogue per shard (every shard starts at hop phase 0),
-    rows equal the single-chip flagship's."""
-    from sdr_pmr446_tpu.ops import spectrogram
-    assert not spectrogram.kernel_wf_supported(128)
-    assert spectrogram.kernel_wf_supported(128, k=16)      # K_local
-    refs, outs = _run_fused_pair("cf32w", K=32, nt=2, n_steps=1,
-                                 waterfall=128)
-    _assert_fused_equal(refs, outs)
-
-
-def test_sharded_fused_one_time_shard_bypasses_prepass():
-    """(S, 1) meshes — the stream-parallel serving shape — skip the
-    exact-state pre-pass entirely (round 5): the carried state is exact,
-    so the duo kernel runs as unsharded.  Equality gate on a (1, 1)
-    mesh — streaming, with the in-kernel waterfall, and on the cu8
-    deployment wire (the batch8 bench rung)."""
-    refs, outs = _run_fused_pair("cf32w", K=8, nt=1, n_steps=2)
-    _assert_fused_equal(refs, outs)
-    refs, outs = _run_fused_pair("cf32w", K=8, nt=1, n_steps=1,
-                                 waterfall=64)
-    _assert_fused_equal(refs, outs)
-    refs, outs = _run_fused_pair("cu8", K=8, nt=1, n_steps=1)
-    _assert_fused_equal(refs, outs)
+                           input_format="cs12")
+    with pytest.raises(ValueError, match="channel"):
+        ShardedSingleChain(mesh, channel=17, subchunks_per_step=4)

@@ -1,154 +1,192 @@
-"""Per-stage timing of the scanner chain on the attached device.
+"""Per-stage device time of the scanner chain, from one jax.profiler trace.
 
-Times each pipeline stage as its own jitted function (inputs resident,
-repeat-measured in one process) to locate the bottleneck.  Stage timings
-include dispatch overhead, so they over-count vs the fused chain — use for
-RELATIVE comparison only.
+Each stage of ``ScannerChain._step_impl`` runs as its own jitted function
+(named ``stage_<name>``, so its XLA module is ``jit_stage_<name>``) on the
+stage's real inputs at the real geometry, ``--calls`` times inside one
+profiler trace, together with the whole step (``jit_stage_full_step``).
+The trace is reduced by module: the device time per call of each stage,
+and the heaviest kernels of each stage with the HLO op they implement —
+which tells whether a convolution went to cuDNN or to XLA's own kernels.
+
+A stage run alone pays its own launch and cannot fuse with its
+neighbours, so the stage sum exceeds the full step; read the stages as
+shares, and the full step as the number.
+
+    python tools/profile_stages.py [--subchunks-per-step 40] [--calls 10]
+        [--out chiprun_out/profile_stages] [--json]
 """
 
-import os as _os
-import sys as _sys
-_REPO_ROOT = _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)))
-if _REPO_ROOT not in _sys.path:
-    _sys.path.insert(0, _REPO_ROOT)
-
+from __future__ import annotations
 
 import argparse
-import time
+import collections
+import glob
+import json
+import os
+import sys
 
-import jax
-import jax.numpy as jnp
-
-jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
-from sdr_pmr446_tpu import config as C
-from sdr_pmr446_tpu.io import synth
-from sdr_pmr446_tpu.ops import iir
-from sdr_pmr446_tpu.scanner.chain import ScannerChain, make_runtime_params
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if _REPO_ROOT not in sys.path:
+    sys.path.insert(0, _REPO_ROOT)
 
 
-def timeit(fn, *args, iters=20):
-    out = fn(*args)
-    jax.block_until_ready(out)
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        out = fn(*args)
-    jax.block_until_ready(out)
-    return (time.perf_counter() - t0) / iters * 1e3, out
-
-
-def main():
-    p = argparse.ArgumentParser()
-    p.add_argument("--subchunks-per-step", type=int, default=40)
-    args = p.parse_args()
-    k = args.subchunks_per_step
-    chain = ScannerChain(C.BlockConfig(k), use_pallas=True)
-    n = chain.block.input_len
-    iq = jnp.asarray(synth.make_scanner_iq(n, channel=5, ctcss_code=12),
-                     jnp.complex64)
-    st = chain.init_state()
-    params = make_runtime_params(C.ScannerArgs())
-
-    def chain_step(iq, params):       # fresh state per call: step donates it
-        return chain.step(chain.init_state(), iq, params)
-
-    ms, _ = timeit(chain_step, iq, params)
-    print(f"full pallas chain        : {ms:7.3f} ms   "
-          f"({n / ms / 1e3:.0f} Ms/s)", flush=True)
-
-    # stage 1: split + DC blocker
-    @jax.jit
-    def stage_dc(iq):
-        xr = jnp.real(iq)
-        xi = jnp.imag(iq)
-        st0 = (jnp.zeros((2,), jnp.float32), jnp.zeros((2,), jnp.float32))
-        (ndx, ndy), xp = iir.dc_blocker_apply(
-            st0, jnp.stack([xr, xi]), C.DC_BLOCK_ALPHA)
-        return xp
-
-    ms, xp = timeit(stage_dc, iq)
-    print(f"split + dc blocker       : {ms:7.3f} ms", flush=True)
-
-    @jax.jit
-    def stage_split(iq):
-        return jnp.stack([jnp.real(iq), jnp.imag(iq)])
-
-    ms, _ = timeit(stage_split, iq)
-    print(f"  split only             : {ms:7.3f} ms", flush=True)
-
-    # stage 2: resampler kernel
-    rs = chain.pallas_resampler
-
-    @jax.jit
-    def stage_res(hist, xr, xi):
-        return rs.apply_planes(hist, xr, xi)
-
-    ms, (rh, br, bi) = timeit(stage_res, st.resamp_hist, xp[0], xp[1])
-    print(f"resampler kernel         : {ms:7.3f} ms", flush=True)
-
-    # stage 3: pfb+demod kernel
-    pf = chain.pallas_pfb
-
-    @jax.jit
-    def stage_pfb(br, bi, h, par, prev):
-        return pf.call_planes(br, bi, h, par, prev)
-
-    ms, (demod, mag, _, _, _) = timeit(
-        stage_pfb, br, bi, st.pfb_hist, st.frame_parity, st.demod_prev)
-    print(f"pfb+demod kernel         : {ms:7.3f} ms", flush=True)
-
-    # stage 4: audio bank kernel
-    ab = chain.pallas_audio
-
-    @jax.jit
-    def stage_audio(h, demod, g):
-        return ab.apply(h, demod, g)
-
-    ms, (ah, audio, lp) = timeit(stage_audio, st.audio_hist, demod,
-                                 params.audio_gain)
-    print(f"audio bank kernel        : {ms:7.3f} ms", flush=True)
-
-    # stage 5: lp dc blocker
-    @jax.jit
-    def stage_lpdc(lp):
-        st0 = (jnp.zeros((16,), jnp.float32), jnp.zeros((16,), jnp.float32))
-        return iir.dc_blocker_apply(st0, lp, C.DC_BLOCK_ALPHA)
-
-    ms, _ = timeit(stage_lpdc, lp)
-    print(f"audio-branch dc blocker  : {ms:7.3f} ms", flush=True)
-
-    # stage 6: rssi + fsm + select (everything after the kernels)
+def build_stages(k: int, waterfall: int, input_format: str):
+    """-> list of (name, jitted fn, args): the chain's stages in order,
+    each fed the previous stage's real output."""
+    import jax
+    import jax.numpy as jnp
+    from sdr_pmr446_tpu import config as C
+    from sdr_pmr446_tpu.io import synth
+    from sdr_pmr446_tpu.ops import decode, fir, fm, iir
+    from sdr_pmr446_tpu.ops import rssi as rssi_op, spectrogram
+    from sdr_pmr446_tpu.scanner.chain import ScannerChain, make_runtime_params
     from sdr_pmr446_tpu.scanner.fsm import FsmCarry, fsm_ctcss_scan_v3
 
-    @jax.jit
-    def stage_fsm(mag, lp_dcb, params):
-        ns = C.SUBCHUNK_AUDIO
-        blocks = mag.reshape(C.NUM_CHANNELS, k, ns)
-        rssi_db = jnp.moveaxis(
-            20.0 * jnp.log10(jnp.maximum(jnp.mean(blocks, axis=-1),
-                                         1e-30)), 0, 1)
-        # fresh zeros INSIDE jit: closing over device arrays embeds them as
-        # constants, which triggers a broken device->host read at trace on
-        # this backend (CLAUDE.md)
-        carry = FsmCarry(jnp.zeros((), jnp.int32),
-                         jnp.full((), -1, jnp.int32),
-                         jnp.zeros((), jnp.float32),
-                         jnp.zeros((), jnp.int32),
-                         jnp.zeros((C.CTCSS_NUM_FREQS,), jnp.complex64),
-                         jnp.zeros((), jnp.bool_),
-                         jnp.zeros((), jnp.int32),
-                         jnp.full((), -1.0, jnp.float32))
-        lp_blocks = jnp.moveaxis(
-            lp_dcb.reshape(C.NUM_CHANNELS, k, ns), 0, 1)
-        return fsm_ctcss_scan_v3(carry, rssi_db, lp_blocks,
-                                 params.channel_mask, params.squelch_level,
-                                 params.lock_max)
+    chain = ScannerChain(C.BlockConfig(k), waterfall=waterfall,
+                         input_format=input_format)
+    params = make_runtime_params(C.ScannerArgs())
+    st = chain.init_state()
+    n = chain.block.input_len
+    ns = C.SUBCHUNK_AUDIO
+    sig = 0.8 * synth.make_scanner_iq(n, channel=5, ctcss_code=12)
+    iq = jnp.asarray(decode.pack_iq(sig, input_format))
 
-    _, lp_dcb = stage_lpdc(lp)
-    ms, _ = timeit(stage_fsm, mag, lp_dcb, params)
-    print(f"rssi + fsm scan          : {ms:7.3f} ms", flush=True)
+    def stage_decode_dc(iq, dc_x, dc_y):
+        x = decode.decode_complex(iq, input_format)
+        return iir.dc_blocker_apply((dc_x, dc_y), x, C.DC_BLOCK_ALPHA)[1]
+
+    def stage_resampler(hist, x):
+        return chain.resampler.apply(hist, x)[1]
+
+    def stage_pfb(hist, parity, band):
+        return chain.pfb.apply((hist, parity), band)[1]
+
+    def stage_demod_rssi(prev, chan):
+        return fm.fm_demod(prev, chan)[1], rssi_op.subchunk_rssi(chan, k)
+
+    def stage_audio_fir(st, demod, gain):
+        _, hp = fir.fir_apply(st.hp_hist, demod, chain.hp_taps)
+        _, dl = fir.delay_apply(st.delay_hist, demod)
+        _, lp = iir.dc_blocker_apply((st.lp_dc_x, st.lp_dc_y), dl - hp,
+                                     C.DC_BLOCK_ALPHA)
+        _, audio = fir.fir_apply(st.deemph_hist, hp * gain,
+                                 chain.deemph_taps)
+        return audio, lp
+
+    def stage_fsm(st, rssi_db, lp, params):
+        carry = FsmCarry(st.fsm_state, st.active_chan, st.rssi, st.ct_count,
+                         st.ct_carry, st.ct_detected, st.ct_max_idx,
+                         st.ct_freq)
+        return fsm_ctcss_scan_v3(
+            carry, rssi_db, None, params.channel_mask, params.squelch_level,
+            params.lock_max, lp_cm=lp.reshape(C.NUM_CHANNELS, k, ns))
+
+    def stage_waterfall(hist, band):
+        return spectrogram.asgram_rows(hist, band, k, waterfall)[1]
+
+    def stage_full_step(st, iq, params):
+        return chain._step_impl(st, iq, params)
+
+    stages = []
+
+    def add(fn, *args):
+        j = jax.jit(fn)
+        stages.append((fn.__name__[len("stage_"):], j, args))
+        return j(*args)
+
+    x = add(stage_decode_dc, iq, st.dc_x, st.dc_y)
+    band = add(stage_resampler, st.resamp_hist, x)
+    chan = add(stage_pfb, st.pfb_hist, st.frame_parity, band)
+    demod, rssi_db = add(stage_demod_rssi, st.demod_prev, chan)
+    _, lp = add(stage_audio_fir, st, demod, params.audio_gain)
+    add(stage_fsm, st, rssi_db, lp, params)
+    if waterfall:
+        add(stage_waterfall, st.wf_hist, band)
+    add(stage_full_step, st, iq, params)
+    jax.block_until_ready([s[1](*s[2]) for s in stages])
+    return stages
+
+
+def reduce_trace(path: str) -> dict:
+    """xplane.pb -> {module: {"total_ns", "kernels": {(name, hlo_op): ns}}}
+    over the events of the device planes (``/device:*``); on a CPU run,
+    over the host's XLA op events instead."""
+    from jax.profiler import ProfileData
+    pd = ProfileData.from_file(path)
+    planes = [p for p in pd.planes if p.name.startswith("/device:")]
+    if not planes:
+        planes = [p for p in pd.planes if p.name.startswith("/host:CPU")]
+    mods: dict = collections.defaultdict(
+        lambda: {"total_ns": 0.0, "kernels": collections.Counter()})
+    for plane in planes:
+        for line in plane.lines:
+            for ev in line.events:
+                stats = dict(ev.stats)
+                mod = stats.get("hlo_module")
+                if not mod:
+                    continue
+                m = mods[str(mod)]
+                m["total_ns"] += ev.duration_ns
+                m["kernels"][(ev.name, str(stats.get("hlo_op", "")))] += \
+                    ev.duration_ns
+    return dict(mods)
+
+
+def main() -> int:
+    p = argparse.ArgumentParser()
+    p.add_argument("--subchunks-per-step", type=int, default=40)
+    p.add_argument("--waterfall", type=int, default=80)
+    p.add_argument("--input-format", default="cu8")
+    p.add_argument("--calls", type=int, default=10)
+    p.add_argument("--top", type=int, default=4,
+                   help="heaviest kernels listed per stage")
+    p.add_argument("--out", default=os.path.join(_REPO_ROOT, "chiprun_out",
+                                                 "profile_stages"))
+    p.add_argument("--json", action="store_true")
+    args = p.parse_args()
+
+    import jax
+    from sdr_pmr446_tpu.utils.compile_cache import enable_compile_cache
+    from sdr_pmr446_tpu.utils.device import card_identity, device_record
+    enable_compile_cache()
+    dev = device_record()
+    stages = build_stages(args.subchunks_per_step, args.waterfall,
+                          args.input_format)
+    with jax.profiler.trace(args.out):
+        for name, fn, a in stages:
+            with jax.profiler.TraceAnnotation(f"stage {name}"):
+                for _ in range(args.calls):
+                    out = fn(*a)
+                jax.block_until_ready(out)
+    files = sorted(glob.glob(os.path.join(args.out, "**", "*.xplane.pb"),
+                             recursive=True), key=os.path.getmtime)
+    mods = reduce_trace(files[-1])
+    rows = []
+    for name, _, _ in stages:
+        m = mods.get(f"jit_stage_{name}", {"total_ns": 0.0,
+                                           "kernels": collections.Counter()})
+        top = [{"kernel": kn, "hlo_op": op,
+                "ms_per_call": ns / args.calls / 1e6}
+               for (kn, op), ns in m["kernels"].most_common(args.top)]
+        rows.append({"stage": name,
+                     "ms_per_call": m["total_ns"] / args.calls / 1e6,
+                     "top_kernels": top})
+    result = {"k": args.subchunks_per_step, "waterfall": args.waterfall,
+              "input_format": args.input_format, "calls": args.calls,
+              "device": dev, "card": card_identity(), "stages": rows,
+              "trace": files[-1]}
+    if args.json:
+        print(json.dumps(result))
+        return 0
+    print(f"# {dev} | {result['card']} | K={args.subchunks_per_step} "
+          f"{args.input_format} w={args.waterfall}")
+    for r in rows:
+        print(f"{r['stage']:>12}: {r['ms_per_call']:9.3f} ms/call")
+        for t in r["top_kernels"]:
+            print(f"{'':>14}{t['ms_per_call']:9.3f}  {t['kernel']}  "
+                  f"[{t['hlo_op']}]")
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())
